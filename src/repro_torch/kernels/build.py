@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Each ``csrc/<name>.cu`` compiles with its own ``nvcc`` into
+``build/kernels/lib<name>-<hash>.so`` at the root of the checkout
+(``.gitignore`` lists ``build/``), for ``sm_90a``, with a plain C
+interface that :func:`library` loads through ``ctypes``.  The hash
+covers the source and the flags, so an edited kernel rebuilds.
+:func:`build_all` starts every ``nvcc`` at once and waits for all of
+them.  Nothing here runs when a module is imported: the CPU tests
+import every module on a machine with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNEL_SOURCES = ("flash_attention", "paged_attention")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+#: name → (seconds, ptxas report) of builds made by this process
+BUILD_LOG: dict[str, tuple[float, str]] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, time.perf_counter()
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out, t0 = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+    BUILD_LOG[name] = (time.perf_counter() - t0, log)
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every kernel source that has no current library, with
+    one ``nvcc`` per source running in parallel.  Returns name → path."""
+    started = {n: _start(n) for n in KERNEL_SOURCES}
+    for name, s in started.items():
+        if s is not None:
+            _finish(name, s)
+    return {n: _target(n) for n in KERNEL_SOURCES}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built if missing)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        s = _start(name)
+        if s is not None:
+            _finish(name, s)
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with "
+                           f"cudaError_t {err}")

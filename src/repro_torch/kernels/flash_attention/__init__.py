@@ -1,0 +1,8 @@
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention,
+    reference_attention,
+)
+from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+__all__ = ["flash_attention", "flash_attention_bshd",
+           "reference_attention"]

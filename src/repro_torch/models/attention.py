@@ -1,0 +1,108 @@
+"""Attention over a paged KV cache: GQA with RoPE and logit
+soft-capping; prefill writes the sequence's pages and attends through
+the flash-prefill kernel, decode writes one slot per sequence and
+attends through the paged-decode kernel.
+
+Counterpart of ``repro/models/attention.py``.  The reference engine
+decodes on a dense per-lane cache; here the KV of every layer lives in
+``(P, T, H_kv, dh)`` K and V page pools indexed by the
+``KVBlockManager``'s block tables, which is the layout the paged kernel
+walks.  Both kernels dispatch on the tensors' device: CUDA tensors go
+through the hand-written kernels, CPU tensors through their plain
+versions.
+
+``local`` (sliding-window) layers are not supported yet: the paged
+decode kernel has no window (ROADMAP queue A, 'other model families').
+
+Shapes: activations (B, S, d); q/k/v (B, S, H, dh).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention_bshd
+from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.models.layers import apply_rope, dense_init
+
+
+def init_attention(gen: torch.Generator, cfg, dtype, device) -> dict:
+    d = cfg.d_model
+    return {
+        "wq": dense_init(gen, (d, cfg.num_heads, cfg.head_dim), dtype,
+                         device),
+        "wk": dense_init(gen, (d, cfg.num_kv_heads, cfg.head_dim), dtype,
+                         device),
+        "wv": dense_init(gen, (d, cfg.num_kv_heads, cfg.head_dim), dtype,
+                         device),
+        "wo": dense_init(gen, (cfg.num_heads, cfg.head_dim, d), dtype,
+                         device),
+    }
+
+
+def _check_kind(kind: str) -> None:
+    if kind != "global":
+        raise NotImplementedError(
+            f"attention kind {kind!r}: the paged decode kernel has no "
+            "sliding window yet (ROADMAP queue A, 'other model families')")
+
+
+def _project(params, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """q (B,S,H,dh), k/v (B,S,H_kv,dh) with RoPE at ``positions``."""
+    B, S, d = x.shape
+    q = (x @ params["wq"].reshape(d, -1)).view(B, S, cfg.num_heads, -1)
+    k = (x @ params["wk"].reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
+    v = (x @ params["wv"].reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out(params, o: torch.Tensor) -> torch.Tensor:
+    B, S = o.shape[:2]
+    wo = params["wo"]
+    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def prefill_attention(params, x: torch.Tensor, cfg, kind: str,
+                      k_pages: torch.Tensor, v_pages: torch.Tensor,
+                      block_tables: torch.Tensor) -> torch.Tensor:
+    """Full-prompt causal attention that also writes the KV pages.
+
+    x (B, S, d) holds B prompts of S tokens at positions 0..S-1; token
+    j of sequence b lands in slot ``(block_tables[b, j // T], j % T)``
+    of the page pools (updated in place).  Attention runs on the fresh
+    (un-rounded) k/v, as the reference does."""
+    _check_kind(kind)
+    B, S, _ = x.shape
+    T = k_pages.shape[1]
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _project(params, x, positions, cfg)
+    pages = block_tables[:, positions // T].long()              # (B, S)
+    slots = (positions % T).expand(B, S)
+    k_pages[pages, slots] = k.to(k_pages.dtype)
+    v_pages[pages, slots] = v.to(v_pages.dtype)
+    o = flash_attention_bshd(q, k, v, causal=True,
+                             softcap=cfg.attn_logit_softcap)
+    return _out(params, o)
+
+
+def decode_attention(params, x: torch.Tensor, cfg, kind: str,
+                     k_pages: torch.Tensor, v_pages: torch.Tensor,
+                     block_tables: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """One-token decode: x (B, 1, d), sequence b's new token at
+    ``positions[b]``.  Writes its K/V into slot
+    ``(block_tables[b, pos // T], pos % T)`` and attends over the
+    ``pos + 1`` tokens of the sequence's pages."""
+    _check_kind(kind)
+    T = k_pages.shape[1]
+    pos = positions.long()
+    q, k, v = _project(params, x, pos[:, None], cfg)
+    pages = block_tables.gather(1, (pos // T)[:, None])[:, 0].long()
+    k_pages[pages, pos % T] = k[:, 0].to(k_pages.dtype)
+    v_pages[pages, pos % T] = v[:, 0].to(v_pages.dtype)
+    o = paged_decode_attention(
+        q[:, 0].contiguous(), k_pages, v_pages,
+        block_tables, (pos + 1).to(torch.int32),
+        softcap=cfg.attn_logit_softcap)
+    return _out(params, o[:, None])

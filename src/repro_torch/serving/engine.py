@@ -1,0 +1,200 @@
+"""InferenceEngine: continuous batching over a real model, on a paged
+KV cache.
+
+Counterpart of ``repro/serving/engine.py`` with the same ``submit``,
+``step``, ``evict`` and ``run_until_drained``, the same gateway calls
+and the same page bookkeeping.  A fixed pool of ``slots`` lanes each
+holds one sequence at its own position.  Prefill runs per request
+(B=1) and writes the prompt's K/V into the pages the ``KVBlockManager``
+allocated; each step then decodes one token for every active lane in
+one batched call.  Iteration-level scheduling in the Orca/vLLM sense,
+admission-gated by the token-pool gateway at the API boundary (the
+paper's control point).
+
+The KV lives in the page pools the block tables index — one
+``(P, T, H_kv, dh)`` K pool and one V pool per layer — and the paged
+decode kernel reads it there; prefill attends through the flash-prefill
+kernel.  On CUDA both are the hand-written kernels, on the CPU their
+plain versions (the device of the params decides).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.gateway import Gateway
+from repro_torch.models import Model, Runtime
+from repro_torch.serving.kv_manager import KVBlockManager
+from repro_torch.serving.request import Request, RequestState
+
+
+@dataclasses.dataclass
+class Lane:
+    request: Optional[Request] = None
+    position: int = 0              # next decode position
+    remaining: int = 0
+    last_token: int = 0
+
+
+class InferenceEngine:
+    def __init__(self, model: Model, params, slots: int, max_seq: int,
+                 gateway: Optional[Gateway] = None,
+                 rt: Runtime = Runtime(), page_tokens: int = 16,
+                 eos_id: Optional[int] = None) -> None:
+        self.model = model
+        self.params = params
+        self.device = params.device
+        self.slots = slots
+        self.max_seq = max_seq
+        self.gateway = gateway
+        self.rt = rt
+        self.eos_id = eos_id
+        self.max_pages = max_seq // page_tokens + 1
+        self.kv_pages = KVBlockManager(
+            total_pages=slots * self.max_pages,
+            page_tokens=page_tokens,
+            bytes_per_token=model.cfg.kv_bytes_per_token)
+        self.cache = model.init_cache(self.kv_pages.total_pages,
+                                      page_tokens, rt, self.device)
+        self.lanes = [Lane() for _ in range(slots)]
+        self.queue: list[Request] = []
+        self.finished: list[Request] = []
+
+    # -- submission ----------------------------------------------------------
+    def submit(self, req: Request, now: float,
+               api_key: Optional[str] = None) -> bool:
+        """Admission-gated enqueue.  Returns False on 429/401."""
+        if self.gateway is not None:
+            resp = self.gateway.handle(
+                api_key or req.api_key, req.request_id,
+                input_tokens=req.input_len, max_tokens=req.max_tokens,
+                now=now,
+                kv_bytes_per_token=self.model.cfg.kv_bytes_per_token)
+            if resp.status != 200:
+                req.state = RequestState.DENIED
+                req.deny_reason = resp.reason
+                req.retry_after_s = resp.retry_after_s
+                self.finished.append(req)
+                return False
+            req.priority = resp.priority
+        req.admitted_s = now
+        self.queue.append(req)
+        self.queue.sort(key=lambda r: (-r.priority, r.arrival_s))
+        return True
+
+    # -- scheduling ------------------------------------------------------------
+    def _free_lanes(self) -> list[int]:
+        return [i for i, l in enumerate(self.lanes) if l.request is None]
+
+    def _tables(self, request_ids: list[str]) -> torch.Tensor:
+        rows = np.stack([self.kv_pages.block_table(rid, self.max_pages)
+                         for rid in request_ids])
+        return torch.from_numpy(rows).to(self.device)
+
+    def _start(self, lane_idx: int, req: Request, now: float) -> None:
+        lane = self.lanes[lane_idx]
+        self.kv_pages.allocate(req.request_id, req.input_len)
+        tokens = torch.tensor([req.prompt_tokens], dtype=torch.long,
+                              device=self.device)
+        logits = self.model.prefill(self.params, tokens, self.cache,
+                                    self._tables([req.request_id]))
+        first = int(torch.argmax(logits[0, -1]))
+        req.first_token_s = now
+        req.output_tokens.append(first)
+        req.state = RequestState.DECODING
+        lane.request = req
+        lane.position = req.input_len
+        lane.remaining = req.max_tokens - 1
+        lane.last_token = first
+        self.kv_pages.extend(req.request_id, req.input_len + 1)
+
+    def step(self, now: float) -> int:
+        """One engine iteration: admit-from-queue → batched decode.
+        Returns the number of tokens produced."""
+        for lane_idx in self._free_lanes():
+            if not self.queue:
+                break
+            req = self.queue.pop(0)
+            self._start(lane_idx, req, now)
+
+        active = [i for i, l in enumerate(self.lanes)
+                  if l.request is not None]
+        if not active:
+            return 0
+        lanes = [self.lanes[i] for i in active]
+        tokens = torch.tensor([[l.last_token] for l in lanes],
+                              dtype=torch.long, device=self.device)
+        positions = torch.tensor([l.position for l in lanes],
+                                 dtype=torch.int32, device=self.device)
+        logits = self.model.decode_step(
+            self.params, tokens, self.cache,
+            self._tables([l.request.request_id for l in lanes]), positions)
+        nxt = torch.argmax(logits[:, 0, :], dim=-1).tolist()
+        produced = 0
+        for lane, tok in zip(lanes, nxt):
+            req = lane.request
+            req.output_tokens.append(tok)
+            produced += 1
+            lane.position += 1
+            lane.remaining -= 1
+            lane.last_token = tok
+            self.kv_pages.extend(req.request_id, lane.position + 1)
+            done = (lane.remaining <= 0
+                    or (self.eos_id is not None and tok == self.eos_id)
+                    or lane.position + 1 >= self.max_seq)
+            if done:
+                req.state = RequestState.FINISHED
+                req.finished_s = now
+                self.finished.append(req)
+                self.kv_pages.free(req.request_id)
+                if self.gateway is not None:
+                    self.gateway.on_complete(
+                        req.request_id, len(req.output_tokens),
+                        latency_s=now - req.arrival_s, now=now)
+                lane.request = None
+                lane.remaining = 0
+        return produced
+
+    def evict(self, request_id: str, now: float) -> bool:
+        """Mid-stream eviction (preemption / client disconnect): free
+        the lane and its KV pages, cancel the admission charge through
+        the gateway failure path.  Queued-but-unstarted requests are
+        evicted too (no KV to reclaim).  Returns False for unknown or
+        already-terminal ids — nothing is freed twice."""
+        for lane in self.lanes:
+            if lane.request is not None \
+                    and lane.request.request_id == request_id:
+                req = lane.request
+                req.state = RequestState.EVICTED
+                req.finished_s = now
+                self.finished.append(req)
+                self.kv_pages.free(request_id)
+                if self.gateway is not None:
+                    self.gateway.on_failure(request_id, now)
+                lane.request = None
+                lane.remaining = 0
+                return True
+        for i, req in enumerate(self.queue):
+            if req.request_id == request_id:
+                req.state = RequestState.EVICTED
+                req.finished_s = now
+                self.finished.append(self.queue.pop(i))
+                if self.gateway is not None:
+                    self.gateway.on_failure(request_id, now)
+                return True
+        return False
+
+    def run_until_drained(self, now: float = 0.0,
+                          time_per_step: float = 0.05,
+                          max_steps: int = 10_000) -> float:
+        """Drive steps until queue+lanes empty; returns final time."""
+        steps = 0
+        while (self.queue or any(l.request for l in self.lanes)) \
+                and steps < max_steps:
+            self.step(now)
+            now += time_per_step
+            steps += 1
+        return now
