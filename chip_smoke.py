@@ -10,24 +10,34 @@ each reported on its own line:
 1. ``build``   — every CUDA kernel of the serve path built by ``nvcc``
    for sm_90a from ``src/repro_torch/kernels/csrc`` (one process per
    source, in parallel), and the card's name and power limit;
-2. ``kernels`` — each kernel against its plain PyTorch version on the
-   card, in float32 and bfloat16, over ragged prompt lengths, a window,
-   a softcap and empty to full contexts;
+2. ``kernels`` — each kernel, on each of its routes, against its plain
+   PyTorch version on the card: flash on the tensor-core route (bf16,
+   dh 64 and 128) and the scalar route (float32, bf16 at dh 96, and bf16
+   at dh 128 forced), over prompt lengths on both sides of the 64-row
+   tiles, a window that starts inside a key tile and a softcap; paged
+   (split-K, and the serial baseline in bf16) over contexts on both
+   sides of its 64-token splits, empty to full, mixed, and with a whole
+   split of -1 pages;
 3. ``control`` — the control tick on the card against the same tick on
    the CPU for a seeded 4096-row state;
 4. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
    full-depth Qwen3-8B (bf16, random init from ``--seed``) serving a
-   guaranteed and a spot tenant; both kernels must have run on this
-   path, and a reduced model served on the card must give the same
-   greedy tokens as on the CPU;
+   guaranteed and a spot tenant; every flash launch on this path must
+   take the tensor-core route and every paged launch the split kernel,
+   and a reduced model served on the card must give the same greedy
+   tokens as on the CPU;
 5. ``profile`` — a decode step and a prefill of 8 lanes on the same
    model, on the host clock and under ``torch.profiler`` (device time
    by kernel).
 
-Then one JSON line describes each kernel (launches on the serve path,
-error against the plain version, times at the serve path's shapes and
-the card's bound for that work), and the last line is the result.  Any
-failure exits non-zero before the result line.
+Then a ``timer`` line gives each kernel, the kernel it replaced and the
+library call timed once more with the first port's serial timer (host
+time inside the window), one JSON line describes each kernel (launches
+on the serve path, error against the plain version, device times at
+the serve path's shapes of the kernel, the kernel it replaced, its
+plain version and the library call, and the card's bound for that
+work), and the last line is the result.  Any failure exits non-zero
+before the result line.
 """
 from __future__ import annotations
 
@@ -57,6 +67,10 @@ FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:85"
 PAGED_TPU = "src/repro/kernels/paged_attention/paged_attention.py:85"
+#: the port's kernel functions, as the profiler names them
+PORT_KERNELS = ("flash_prefill_wgmma_kernel", "flash_prefill_kernel",
+                "paged_split_kernel", "paged_merge_kernel",
+                "paged_decode_kernel")
 
 
 class PhaseFailed(RuntimeError):
@@ -77,21 +91,69 @@ def card_line() -> str:
 
 
 # -- timing ------------------------------------------------------------------
+#: clock cycles per second that ``torch.cuda._sleep`` is sized with (the
+#: H100 SXM's top SM clock; a slower clock only makes the wait longer)
+SLEEP_CYCLES_S = 1.98e9
+
+
 class Timer:
-    """Median device time of one call, each launch after a write of a
-    buffer larger than L2 (the serve path finds each layer's K/V and
-    weights cold), measured with CUDA events."""
+    """Median device time of one call over ``iters`` launches, each after
+    a write of a buffer larger than L2 (the serve path finds each layer's
+    K/V and weights cold), measured with CUDA events.
+
+    :meth:`ms` times the device alone: a device-side wait is queued
+    first, then all the (flush, start event, call, end event) groups,
+    and the host synchronises once, so the device reaches every start
+    event with its call already queued behind it.  The wait is sized
+    from the host time of one group and doubled until the host finishes
+    enqueuing before the wait ends.  :meth:`serial_ms` is the timer of
+    the first port, one launch at a time, whose window also holds the
+    host's time between the start event and the launch; it is kept only
+    to show that difference."""
 
     def __init__(self, torch, iters: int = 30) -> None:
         self.torch = torch
         self.iters = iters
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn) -> float:
+    def _warm(self, fn) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.flush.zero_()
+        fn()
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return host_s
+
+    def ms(self, fn) -> float:
+        torch = self.torch
+        wait_s = 2 * self.iters * self._warm(fn) + 1e-3
+        for _ in range(4):
+            pairs = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     for _ in range(self.iters)]
+            torch.cuda._sleep(int(SLEEP_CYCLES_S * wait_s))
+            waited = torch.cuda.Event()
+            waited.record()
+            for a, b in pairs:
+                self.flush.zero_()
+                a.record()
+                fn()
+                b.record()
+            ahead = not waited.query()      # the device still waiting
+            torch.cuda.synchronize()
+            if ahead:
+                times = sorted(a.elapsed_time(b) for a, b in pairs)
+                return times[len(times) // 2]
+            wait_s *= 2
+        raise PhaseFailed("timer: the host never got ahead of the device")
+
+    def serial_ms(self, fn) -> float:
+        torch = self.torch
+        self._warm(fn)
         times = []
         for _ in range(self.iters):
             self.flush.zero_()
@@ -137,72 +199,124 @@ def phase_build() -> dict:
 
 # -- phase 2 -------------------------------------------------------------------
 def phase_kernels(torch, seed: int) -> dict:
-    """Each kernel against its plain version on the card.  Returns the
-    max error per kernel in the serve path's type (bfloat16)."""
+    """Each kernel, on each of its routes, against its plain version on
+    the card.  Returns the max error per kernel in the serve path's type
+    (bfloat16) and route."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bshd, reference_attention)
+        flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention, reference_paged_attention)
+        paged_attention_serial, paged_decode_attention,
+        reference_paged_attention)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst = {"flash_prefill": 0.0, "paged_decode": 0.0}
     lines = []
-    H, Hkv, dh = 32, 8, 128
-    flash_cases = [(S, None, None) for S in (1, 3, 37, 128, 300, 512)]
-    flash_cases += [(300, 64, None), (300, None, 50.0)]
-    for dt in ("float32", "bfloat16"):
+    H, Hkv = 32, 8
+    # ragged lengths on both sides of the 64-row tiles, a window that
+    # starts inside a key tile, a softcap
+    flash_cases = [(S, None, None) for S in
+                   (1, 3, 37, 63, 64, 65, 128, 130, 300, 512)]
+    flash_cases += [(130, 40, None), (300, 64, None), (300, None, 50.0)]
+    # (dtype, head width, route): the tensor-core route at both widths,
+    # the scalar route for float32, for bf16 at a width wgmma does not
+    # take, and forced at the serve path's width
+    routes = [("bfloat16", 128, None), ("bfloat16", 64, None),
+              ("float32", 128, None), ("bfloat16", 96, None),
+              ("bfloat16", 128, "scalar")]
+    for dt, dh, kernel in routes:
         dtype = getattr(torch, dt)
         errs = []
+        before = dict(flash_attention.route_launches)
         for S, window, cap in flash_cases:
+            # (B, H, S, dh) views of the model's (B, S, H, dh) tensors,
+            # read in place as the serve path reads them
             q, k, v = (torch.randn(1, S, h, dh, device="cuda", generator=g)
-                       .to(dtype) for h in (H, Hkv, Hkv))
-            out = flash_attention_bshd(q, k, v, causal=True, window=window,
-                                       softcap=cap)
+                       .to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv))
+            out = flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=cap, kernel=kernel)
             torch.cuda.synchronize()
-            ref = reference_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, window=window, softcap=cap).transpose(1, 2)
+            ref = reference_attention(q, k, v, causal=True, window=window,
+                                      softcap=cap)
             err, ok = max_err(torch, out, ref, dt)
-            check(ok, f"flash {dt} S={S} window={window} softcap={cap}: "
-                      f"max |err| {err} beyond tolerance {TOL[dt]}")
+            check(ok, f"flash {dt} dh={dh} route={kernel} S={S} "
+                      f"window={window} softcap={cap}: max |err| {err} "
+                      f"beyond tolerance {TOL[dt]}")
             errs.append(err)
-        if dt == "bfloat16":
+        took = [r for r, n in flash_attention.route_launches.items()
+                if n > before[r]]
+        check(len(took) == 1, f"flash {dt} dh={dh}: routes taken {took}")
+        if (dt, dh, kernel) == ("bfloat16", 128, None):
+            check(took == ["wgmma"], "flash bf16 dh=128 did not take wgmma")
             worst["flash_prefill"] = max(errs)
-        lines.append(f"flash {dt} max|err| {max(errs):.3g} "
-                     f"(tol {TOL[dt]}, {len(errs)} cases)")
+        lines.append(f"flash {dt} dh={dh} {took[0]} max|err| "
+                     f"{max(errs):.3g} (tol {TOL[dt]}, {len(errs)} cases)")
 
-    B, T, mp = 8, 16, 128
+    B, T, mp, dh = 8, 16, 128, 128
     P = B * mp
+    # contexts on both sides of the 64-token splits, empty to full; one
+    # batch of mixed contexts; one where a whole split's pages are -1
+    ctx_sets = [[c] * B for c in (0, 1, 63, 64, 65, 128, 2047)]
+    ctx_sets.append([0, 1, 63, 64, 65, 128, 2047, 1000])
+    ctx_sets.append([300] * B)
     for q_dt, kv_dt in (("float32", "float32"), ("bfloat16", "bfloat16"),
                         ("float32", "bfloat16")):
         qd, kd = getattr(torch, q_dt), getattr(torch, kv_dt)
-        errs = []
+        errs, serial_errs = [], []
         kp = torch.randn(P, T, Hkv, dh, device="cuda", generator=g).to(kd)
         vp = torch.randn(P, T, Hkv, dh, device="cuda", generator=g).to(kd)
-        ctx_sets = [[c] * B for c in (0, 1, 16, 17, 300, 2047)]
-        ctx_sets.append([0, 1, 16, 17, 300, 2047, 5, 1000])
-        for ctxs in ctx_sets:
+        for i, ctxs in enumerate(ctx_sets):
             q = torch.randn(B, H, dh, device="cuda", generator=g).to(qd)
             bt = torch.randperm(P, device="cuda", generator=g) \
                 .to(torch.int32).reshape(B, mp)
             cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
             for b, c in enumerate(ctxs):
                 bt[b, (c + T - 1) // T:] = -1
-            out = paged_decode_attention(q, kp, vp, bt, cl)
+            if i == len(ctx_sets) - 1:
+                bt[:, 4:8] = -1               # tokens 64-127: one split
+            outs = [paged_decode_attention(q, kp, vp, bt, cl)]
+            if q_dt == kv_dt == "bfloat16":
+                outs.append(paged_attention_serial(q, kp, vp, bt, cl))
             torch.cuda.synchronize()
             ref = reference_paged_attention(q, kp, vp, bt, cl)
             tol_dt = "bfloat16" if "bfloat16" in (q_dt, kv_dt) else q_dt
-            err, ok = max_err(torch, out, ref, tol_dt)
-            check(ok, f"paged q {q_dt} pages {kv_dt} ctx={ctxs}: max |err| "
-                      f"{err} beyond tolerance {TOL[tol_dt]}")
-            zero = [b for b, c in enumerate(ctxs) if c == 0]
-            check(not out[zero].float().abs().sum().item(),
-                  "paged: context 0 must give zeros")
-            errs.append(err)
+            for out, sink in zip(outs, (errs, serial_errs)):
+                err, ok = max_err(torch, out, ref, tol_dt)
+                check(ok, f"paged q {q_dt} pages {kv_dt} ctx={ctxs}: max "
+                          f"|err| {err} beyond tolerance {TOL[tol_dt]}")
+                zero = [b for b, c in enumerate(ctxs) if c == 0]
+                check(not out[zero].float().abs().sum().item(),
+                      "paged: context 0 must give zeros")
+                sink.append(err)
         if q_dt == kv_dt == "bfloat16":
             worst["paged_decode"] = max(errs)
-        lines.append(f"paged q {q_dt} / pages {kv_dt} max|err| "
+            lines.append(f"paged serial q {q_dt} / pages {kv_dt} max|err| "
+                         f"{max(serial_errs):.3g} ({len(serial_errs)} cases)")
+        lines.append(f"paged split q {q_dt} / pages {kv_dt} max|err| "
                      f"{max(errs):.3g} ({len(errs)} cases)")
+    # the other head widths and group sizes the split kernel takes
+    # (the reduced model of the serve phase has dh 16, G 2)
+    ctxs = ctx_sets[-2]
+    cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+    for dt in ("float32", "bfloat16"):
+        errs = []
+        for dh_, (h, hkv) in ((16, (4, 2)), (32, (8, 1)), (64, (4, 4))):
+            kp, vp = (torch.randn(P, T, hkv, dh_, device="cuda", generator=g)
+                      .to(getattr(torch, dt)) for _ in range(2))
+            q = torch.randn(B, h, dh_, device="cuda", generator=g) \
+                .to(getattr(torch, dt))
+            bt = torch.randperm(P, device="cuda", generator=g) \
+                .to(torch.int32).reshape(B, mp)
+            for b, c in enumerate(ctxs):
+                bt[b, (c + T - 1) // T:] = -1
+            out = paged_decode_attention(q, kp, vp, bt, cl)
+            torch.cuda.synchronize()
+            ref = reference_paged_attention(q, kp, vp, bt, cl)
+            err, ok = max_err(torch, out, ref, dt)
+            check(ok, f"paged {dt} dh={dh_} H={h}/{hkv} ctx={ctxs}: max "
+                      f"|err| {err} beyond tolerance {TOL[dt]}")
+            errs.append(err)
+        lines.append(f"paged split {dt} dh 16/32/64, G 2/8/1 max|err| "
+                     f"{max(errs):.3g}")
     print("kernels: all within tolerance vs plain versions on the card; "
           + "; ".join(lines))
     return worst
@@ -358,19 +472,27 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
             slots=slots, max_seq=max_seq, gateway=gw, page_tokens=page)
         spec = workload(np, seed, n_requests, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
-        fa_mod.flash_attention.launches = 0
-        pa_mod.paged_attention.launches = 0
+        for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
+            fn.launches = 0
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
         t = time.perf_counter()
         reqs = drive(torch, eng, pool, serving, spec, max_tokens)
         wall = time.perf_counter() - t
-        launches = {"flash_prefill": fa_mod.flash_attention.launches,
-                    "paged_decode": pa_mod.paged_attention.launches}
+        launches = {
+            "flash_prefill": fa_mod.flash_attention.route_launches["wgmma"],
+            "paged_decode": pa_mod.paged_attention.route_launches["split"]}
+        routes = {"flash": dict(fa_mod.flash_attention.route_launches),
+                  "paged": dict(pa_mod.paged_attention.route_launches)}
     finally:
         fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check(launches["flash_prefill"] > 0 and launches["paged_decode"] > 0,
           f"serve: a kernel never launched on the serve path: {launches}")
+    check(launches["flash_prefill"] == fa_mod.flash_attention.launches
+          and launches["paged_decode"] == pa_mod.paged_attention.launches,
+          f"serve: a launch took another route than wgmma flash and split "
+          f"paged: {routes}")
     check(not any(plain_on_cuda.values()),
           f"serve: plain versions called on CUDA tensors: {plain_on_cuda}")
     fin = [r for r in reqs if r.state.value == "finished"]
@@ -426,7 +548,7 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
         f"(prompts {min(lens)}-{max(lens)} tokens); decode "
         f"{decode_tokens / decode_s:.1f} tokens/s of wall time "
         f"({decode_tokens} tokens in {decode_s:.2f} s); peak memory "
-        f"{peak_gb:.2f} GB; launches {launches}; plain calls on CUDA "
+        f"{peak_gb:.2f} GB; launches by route {routes}; plain calls on CUDA "
         f"{plain_on_cuda}")
     return {"launches": launches, "prompts": [len(s[2]) for s in spec],
             "fin_ctx": [len(r.prompt_tokens) + max_tokens // 2
@@ -497,11 +619,16 @@ def phase_profile(torch, np, seed: int, served: dict) -> None:
             continue
         dev = sum(e.self_device_time_total for e in events) / 1e3
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        # the port's own kernels, wherever they rank
+        ours = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
         parts.append(
             f"{name}: {dev:.2f} ms of kernels in {profiled_ms:.2f} ms "
             f"({100 * dev / profiled_ms:.0f} % busy); top " + ", ".join(
                 f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
-                f"({e.count}x)" for e in top))
+                f"({e.count}x)" for e in top) + "; port kernels " + ", ".join(
+                f"{next(k for k in PORT_KERNELS if k in e.key)} "
+                f"{e.self_device_time_total / 1e3:.3f} ms ({e.count}x)"
+                for e in ours))
     for rid in ids:
         kv.free(rid)
     print(f"profile: {B} lanes at {S} tokens, full-width model; decode step "
@@ -545,19 +672,23 @@ def phase_small_reference(torch, np, seed: int) -> None:
 
 # -- kernel report ----------------------------------------------------------------
 def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
-    """Times of each kernel, its plain version and the library's
-    attention at the serve path's shapes, beside the card's bound."""
+    """Times of each kernel, of the kernel it replaced (``previous_ms``),
+    of its plain version and of the library's attention at the serve
+    path's shapes, beside the card's bound; then each kernel, its
+    predecessor and the library call once more with the serial timer of
+    the first port, on a line of their own."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bshd, reference_attention)
+        flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention, reference_paged_attention)
+        paged_attention_serial, paged_decode_attention,
+        reference_paged_attention)
 
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
     bf16 = torch.bfloat16
     H, Hkv, dh = 32, 8, 128
-    out = []
+    out, calls = [], {}
 
     # flash: one prefill (B=1) at the longest prompt of the workload, in
     # the model's (B, S, H, dh) layout as the serve path passes it
@@ -569,19 +700,26 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     nbytes = 2.0 * (2 * H + 2 * Hkv) * S * dh         # q, k, v in; out
     t_ops = flops / PEAK_FLOPS["bfloat16"]
     t_bytes = nbytes / HBM_BYTES_S
+    o = torch.empty_like(q)
+    calls["flash_prefill"] = {
+        "kernel": lambda: flash_attention(q, k, v, causal=True, out=o),
+        "previous": lambda: flash_attention(q, k, v, causal=True, out=o,
+                                            kernel="scalar"),
+        "library": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)}
     out.append({
         "name": "flash_prefill", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,
         "launches": served["launches"]["flash_prefill"],
         "max_abs_err": errs["flash_prefill"],
-        "ms": timer.ms(lambda: flash_attention_bshd(qm, km, vm,
-                                                    causal=True)),
+        "ms": timer.ms(calls["flash_prefill"]["kernel"]),
         "plain_ms": timer.ms(lambda: reference_attention(q, k, v,
                                                          causal=True)),
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
-        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
+        "library_ms": timer.ms(calls["flash_prefill"]["library"]),
+        "previous_ms": timer.ms(calls["flash_prefill"]["previous"]),
+        "previous": "scalar route (flash_prefill_bf16)",
         "shape": f"B=1 H={H} H_kv={Hkv} S={S} dh={dh} bf16 causal",
     })
 
@@ -606,28 +744,45 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     t_ops = flops / PEAK_FLOPS["bfloat16"]
     t_bytes = nbytes / HBM_BYTES_S
     # the library yardstick: SDPA over the same K/V gathered to dense
-    # per sequence (the gather itself is not timed)
-    K = mp * T
-    dk = kp[bt.long().clamp_min(0)].reshape(B, K, Hkv, dh).transpose(1, 2)
-    dv = vp[bt.long().clamp_min(0)].reshape(B, K, Hkv, dh).transpose(1, 2)
+    # per sequence up to the longest live context, masked (the gather
+    # itself is not timed)
+    n_live = -(-max(ctx) // T)
+    K = n_live * T
+    pages = bt[:, :n_live].long().clamp_min(0)
+    dk = kp[pages].reshape(B, K, Hkv, dh).transpose(1, 2)
+    dv = vp[pages].reshape(B, K, Hkv, dh).transpose(1, 2)
     mask = (torch.arange(K, device="cuda")[None, :] < cl[:, None].long())
     mask = mask[:, None, None, :]
     qs = qd[:, :, None, :]
+    calls["paged_decode"] = {
+        "kernel": lambda: paged_decode_attention(qd, kp, vp, bt, cl),
+        "previous": lambda: paged_attention_serial(qd, kp, vp, bt, cl),
+        "library": lambda: F.scaled_dot_product_attention(
+            qs, dk, dv, attn_mask=mask, enable_gqa=True)}
     out.append({
         "name": "paged_decode", "route": "cuda", "source": PAGED_SRC,
         "replaces": PAGED_TPU,
         "launches": served["launches"]["paged_decode"],
         "max_abs_err": errs["paged_decode"],
-        "ms": timer.ms(lambda: paged_decode_attention(qd, kp, vp, bt, cl)),
+        "ms": timer.ms(calls["paged_decode"]["kernel"]),
         "plain_ms": timer.ms(lambda: reference_paged_attention(
             qd, kp, vp, bt, cl)),
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
-        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-            qs, dk, dv, attn_mask=mask, enable_gqa=True)),
+        "library_ms": timer.ms(calls["paged_decode"]["library"]),
+        "previous_ms": timer.ms(calls["paged_decode"]["previous"]),
+        "previous": "serial kernel (paged_decode_serial_bf16)",
         "shape": f"B={B} H={H} H_kv={Hkv} dh={dh} T={T} max_pages={mp} "
-                 f"ctx={ctx} bf16",
+                 f"ctx={ctx} bf16; library over {K} keys",
     })
+    parts = []
+    for r in out:
+        for what, fn in calls[r["name"]].items():
+            key = "ms" if what == "kernel" else f"{what}_ms"
+            parts.append(f"{r['name']} {what} {timer.serial_ms(fn):.4f} "
+                         f"(device alone {r[key]:.4f})")
+    print("timer: ms with the serial timer of the first port, one launch "
+          "at a time, host time inside the window: " + "; ".join(parts))
     for r in out:
         r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
     return out

@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` compiles with its own ``nvcc`` into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout
 (``.gitignore`` lists ``build/``), for ``sm_90a``, with a plain C
 interface that :func:`library` loads through ``ctypes``.  The hash
-covers the source and the flags, so an edited kernel rebuilds.
+covers every file under ``csrc/`` (a source and whatever it includes)
+and the flags, so an edited kernel or header rebuilds.  No CUTLASS or
+CuTe header is used, so no ``-I`` flag is passed.  :func:`function`
+binds an entry point's argument types once, when it is first asked for.
 :func:`build_all` starts every ``nvcc`` at once and waits for all of
 them.  Nothing here runs when a module is imported: the CPU tests
 import every module on a machine with no ``nvcc``.
@@ -26,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("flash_attention", "paged_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 #: name → (seconds, ptxas report) of builds made by this process
 BUILD_LOG: dict[str, tuple[float, str]] = {}
 
@@ -42,8 +46,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(name.encode())
+    for path in sorted(CSRC.rglob("*")):
+        if path.is_file():
+            digest.update(path.relative_to(CSRC).as_posix().encode())
+            digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -88,6 +96,19 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``entry`` of ``csrc/<name>.cu``, returning a
+    ``cudaError_t`` as an int; its argument types are set on the first
+    call only (launches sit on the host-bound decode step)."""
+    fn = _FNS.get((name, entry))
+    if fn is None:
+        fn = getattr(library(name), entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[(name, entry)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

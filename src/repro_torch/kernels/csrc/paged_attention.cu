@@ -11,32 +11,47 @@
 //   zero output, as the TPU kernel gives.
 //
 // On the TPU the block table rides in scalar memory and drives the
-// BlockSpec index maps, so the grid's page axis DMAs one page per step.
-// Here one CTA owns one (sequence, kv head) and reads its own block
-// table: it walks pages 0 .. ceil(ctx / T) - 1, skips -1 entries, and
-// reads each page's K and V rows for its kv head straight from device
-// memory (each row is dh contiguous elements, so a warp's loads are
-// coalesced).  Scores for the G query heads of the group land in
-// shared memory, one warp per head runs the online-softmax update, and
-// every thread keeps its (head, column) accumulators in shared memory.
+// BlockSpec index maps, and the grid's page axis walks the pages in
+// order with (m, l, acc) in VMEM.  On Hopper the pages of a sequence are
+// split over CTAs instead (flash-decoding), because one CTA per
+// (sequence, kv head) — 64 at batch 8 on Qwen3-8B — leaves half the 132
+// SMs idle and walks its pages in series.
 //
 // What bounds it on the H100: every K/V element of the live context is
 // read once and used for G multiply-adds (one per query head of the
 // group), ~G FLOP per bf16 byte (4 at Qwen3-8B) — far below the ~295
-// FLOP/byte ridge, so it is bound by memory bandwidth (3.35 TB/s).  The weakness of this first version is
-// parallelism: B x H_kv CTAs (64 at batch 8 on Qwen3-8B) leave half of
-// the 132 SMs idle and each CTA walks its pages serially.  The next step
-// is flash-decoding: split the pages of a sequence over several CTAs and
-// merge the partial (m, l, acc) in a second pass.
+// FLOP/byte ridge, so it is bound by memory bandwidth (3.35 TB/s): the
+// design puts as many independent 16-byte loads in flight as it can.
+//
+// Pass 1 (paged_split_kernel), grid (H_kv, B, n_split): each CTA of 4
+// warps takes one chunk of 64 tokens (pps = 64 / T pages; one page when
+// T > 64) of one (sequence, kv head).  n_split comes from the block
+// table's width, so the host never reads context_lens; a CTA whose chunk
+// starts at or past the context exits at once.  The CTA reads its pps
+// table entries once, then each warp issues all the 16-byte K and V row
+// loads of its 16 tokens before any math (for bf16 at dh = 128 one
+// warp-load covers two token rows, 16 lanes each).  The G query heads
+// sit in f32 registers and each K row is used for all of them; a score
+// is reduced over the row's lanes with shuffles.  The chunk's partial
+// (m, l, acc[G][dh]) goes to f32 scratch.
+// Pass 2 (paged_merge_kernel), grid (H_kv, B): reads the ceil(ctx / 64)
+// partials of its (sequence, kv head), rescales them to a common max,
+// sums and divides, and writes q's dtype; context 0 gives zeros.
+//
+// paged_decode_serial_bf16 keeps the first kernel of this port — one CTA
+// per (sequence, kv head) walking its pages in series — as the baseline
+// that the split kernel's time is compared with.  It is on no path.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -2.38e38f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -51,6 +66,332 @@ from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// ---------------------------------------------------------------------------
+// Split-K route
+// ---------------------------------------------------------------------------
+namespace split {
+
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK = 64;                  // tokens per CTA for pages <= 64
+
+// 16 bytes of a K or V row as f32
+__device__ __forceinline__ void unpack(const uint4& r, float* f,
+                                       __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& r, float* f, float) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+// q (B, H, dh); pages (P, T, H_kv, dh); block_tables (B, max_pages) int32
+// padded with -1; context_lens (B,) int32.  Partials: acc
+// (B, H_kv, n_split, G, DH) and ml (B, H_kv, n_split, G, 2) f32, m in
+// log2 units.
+template <typename TQ, typename TKV, int DH, int G>
+__global__ void __launch_bounds__(THREADS)
+paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
+                   const TKV* __restrict__ vp,
+                   const int* __restrict__ block_tables,
+                   const int* __restrict__ context_lens,
+                   float* __restrict__ part_acc, float* __restrict__ part_ml,
+                   int Hkv, int T, int max_pages, int pps, float softcap,
+                   float scale) {
+  constexpr int VEC = 16 / sizeof(TKV);       // elements per 16-byte load
+  constexpr int LOADS = DH / VEC;             // 16-byte loads per row
+  constexpr int L = LOADS < 32 ? LOADS : 32;  // lanes per row
+  constexpr int NV = LOADS / L;               // loads per lane per row
+  constexpr int RPL = 32 / L;                 // rows per warp-load
+  constexpr int STEPS = G >= 8 ? 4 : 8;       // warp-loads in flight
+  constexpr int BT = STEPS * RPL;             // tokens per warp batch
+  constexpr int NE = NV * VEC;                // elements per lane per row
+  static_assert(DH % VEC == 0 && 32 % L == 0, "head width");
+
+  __shared__ int spage[CHUNK];
+  __shared__ float wml[WARPS][G][2];
+  __shared__ float wacc[WARPS][G][DH];
+
+  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int ctx = context_lens[b];
+  const int chunk = pps * T;
+  const int t0 = sp * chunk;
+  if (t0 >= ctx) return;                      // uniform: nothing to read
+  const int t1 = min(ctx, t0 + chunk);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int sub = lane % L;                   // position along the row
+  const int rsel = lane / L;                  // row of the warp-load
+
+  if (tid < pps) {
+    const int ip = sp * pps + tid;
+    spage[tid] = ip < max_pages ? block_tables[b * max_pages + ip] : -1;
+  }
+
+  const int H = Hkv * G;
+  float qr[G][NE];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        qr[g][n * VEC + e] = to_f32(
+            q[((long long)b * H + hk * G + g) * DH + (n * L + sub) * VEC + e]);
+  __syncthreads();                            // spage ready
+
+  float m[G], l[G], acc[G][NE];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) acc[g][e] = 0.f;
+  }
+
+  const long long tok_stride = (long long)Hkv * DH;   // one token row
+  for (int base = t0 + warp * BT; base < t1; base += WARPS * BT) {
+    // every K and V load of the batch first
+    uint4 kr[STEPS][NV], vr[STEPS][NV];
+    bool ok[STEPS];
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      const int t = base + st * RPL + rsel;
+      const int page = t < t1 ? spage[(t - t0) / T] : -1;
+      ok[st] = page >= 0;
+      const long long row =
+          ((long long)(ok[st] ? page : 0) * T + t % T) * tok_stride +
+          (long long)hk * DH;
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const long long off = row + (n * L + sub) * VEC;
+        kr[st][n] = ok[st] ? __ldg(reinterpret_cast<const uint4*>(kp + off))
+                           : make_uint4(0, 0, 0, 0);
+        vr[st][n] = ok[st] ? __ldg(reinterpret_cast<const uint4*>(vp + off))
+                           : make_uint4(0, 0, 0, 0);
+      }
+    }
+
+    // scores, in log2 units, reduced over the L lanes of each row
+    float s[STEPS][G];
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      float kf[NE];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) unpack(kr[st][n], kf + n * VEC, TKV());
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) part = fmaf(qr[g][e], kf[e], part);
+#pragma unroll
+        for (int o = L / 2; o > 0; o >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, o);
+        float x = part * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        s[st][g] = ok[st] ? x * LOG2E : -INFINITY;
+      }
+    }
+
+    // online update with the warp's max over the batch
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) mx = fmaxf(mx, s[st][g]);
+#pragma unroll
+      for (int o = L; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float mn = fmaxf(m[g], mx);
+      const float base_g = mn == -INFINITY ? 0.f : mn;
+      const float alpha = exp2f(m[g] - base_g);
+      m[g] = mn;
+      float psum = 0.f;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {
+        const float p = exp2f(s[st][g] - base_g);
+        psum += p;
+        float vf[NE];
+#pragma unroll
+        for (int n = 0; n < NV; ++n) unpack(vr[st][n], vf + n * VEC, TKV());
+#pragma unroll
+        for (int e = 0; e < NE; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      }
+      // every lane of a row holds the same p: sum over the rows only
+#pragma unroll
+      for (int o = L; o < 32; o <<= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, o);
+      l[g] = l[g] * alpha + psum;
+    }
+  }
+
+  // the warp's acc: sum the rows of the warp-load, lanes 0..L-1 hold it
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < NE; ++e)
+#pragma unroll
+      for (int o = L; o < 32; o <<= 1)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+  if (lane < L) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          wacc[warp][g][(n * L + sub) * VEC + e] = acc[g][n * VEC + e];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      wml[warp][g][0] = m[g];
+      wml[warp][g][1] = l[g];
+    }
+  }
+  __syncthreads();
+
+  // the CTA's partial: the warps rescaled to their common max
+  const long long pidx = ((long long)b * Hkv + hk) * gridDim.z + sp;
+  for (int i = tid; i < G * DH; i += THREADS) {
+    const int g = i / DH, d = i % DH;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wml[w][g][0]);
+    const float base_g = mx == -INFINITY ? 0.f : mx;
+    float a = 0.f, ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = exp2f(wml[w][g][0] - base_g);
+      a = fmaf(f, wacc[w][g][d], a);
+      ls = fmaf(f, wml[w][g][1], ls);
+    }
+    part_acc[pidx * G * DH + i] = a;
+    if (d == 0) {
+      part_ml[(pidx * G + g) * 2 + 0] = mx;
+      part_ml[(pidx * G + g) * 2 + 1] = ls;
+    }
+  }
+}
+
+// out (B, H, dh) in q's type from the partials of pass 1
+template <typename TQ>
+__global__ void __launch_bounds__(THREADS)
+paged_merge_kernel(const float* __restrict__ part_acc,
+                   const float* __restrict__ part_ml,
+                   const int* __restrict__ context_lens, TQ* __restrict__ o,
+                   int Hkv, int G, int dh, int chunk, int n_split) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int ctx = context_lens[b];
+  const int ns = min(n_split, (ctx + chunk - 1) / chunk);
+  const long long p0 = ((long long)b * Hkv + hk) * n_split;
+  TQ* ob = o + ((long long)b * Hkv + hk) * G * dh;
+  for (int i = threadIdx.x; i < G * dh; i += THREADS) {
+    const int g = i / dh;
+    float mx = -INFINITY;
+    for (int s = 0; s < ns; ++s)
+      mx = fmaxf(mx, part_ml[((p0 + s) * G + g) * 2]);
+    const float base_g = mx == -INFINITY ? 0.f : mx;
+    float a = 0.f, ls = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      const float f = exp2f(part_ml[((p0 + s) * G + g) * 2] - base_g);
+      a = fmaf(f, part_acc[(p0 + s) * G * dh + i], a);
+      ls = fmaf(f, part_ml[((p0 + s) * G + g) * 2 + 1], ls);
+    }
+    ob[i] = from_f32<TQ>(ls > 0.f ? a / ls : 0.f);
+  }
+}
+
+// pages per CTA: 64 tokens, or one page when pages are longer
+inline int pages_per_split(int T) { return T < CHUNK ? CHUNK / T : 1; }
+
+template <typename TQ, typename TKV, int DH, int G>
+cudaError_t launch_g(const void* q, const void* kp, const void* vp,
+                     const void* bt, const void* cl, void* o, float* part,
+                     int B, int Hkv, int T, int max_pages, float softcap,
+                     float scale, cudaStream_t stream) {
+  const int pps = pages_per_split(T);
+  const int n_split = (max_pages + pps - 1) / pps;
+  float* part_ml = part + (size_t)B * Hkv * n_split * G * DH;
+  paged_split_kernel<TQ, TKV, DH, G>
+      <<<dim3(Hkv, B, n_split), THREADS, 0, stream>>>(
+          static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
+          static_cast<const TKV*>(vp), static_cast<const int*>(bt),
+          static_cast<const int*>(cl), part, part_ml, Hkv, T, max_pages, pps,
+          softcap, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_merge_kernel<TQ><<<dim3(Hkv, B), THREADS, 0, stream>>>(
+      part, part_ml, static_cast<const int*>(cl), static_cast<TQ*>(o), Hkv,
+      G, DH, pps * T, n_split);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, int DH>
+cudaError_t launch_dh(const void* q, const void* kp, const void* vp,
+                      const void* bt, const void* cl, void* o, float* part,
+                      int B, int Hkv, int G, int T, int max_pages,
+                      float softcap, float scale, cudaStream_t stream) {
+  switch (G) {
+    case 1: return launch_g<TQ, TKV, DH, 1>(q, kp, vp, bt, cl, o, part, B,
+                                            Hkv, T, max_pages, softcap,
+                                            scale, stream);
+    case 2: return launch_g<TQ, TKV, DH, 2>(q, kp, vp, bt, cl, o, part, B,
+                                            Hkv, T, max_pages, softcap,
+                                            scale, stream);
+    case 4: return launch_g<TQ, TKV, DH, 4>(q, kp, vp, bt, cl, o, part, B,
+                                            Hkv, T, max_pages, softcap,
+                                            scale, stream);
+    case 8: return launch_g<TQ, TKV, DH, 8>(q, kp, vp, bt, cl, o, part, B,
+                                            Hkv, T, max_pages, softcap,
+                                            scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ, typename TKV>
+int launch(const void* q, const void* kp, const void* vp,
+           const void* bt, const void* cl, void* o, void* part, int B,
+           int H, int Hkv, int T, int dh, int max_pages, float softcap,
+           float scale, void* stream) {
+  if (B == 0 || max_pages == 0) return cudaSuccess;
+  const int G = H / Hkv;
+  float* p = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dh) {
+    case 16: err = launch_dh<TQ, TKV, 16>(q, kp, vp, bt, cl, o, p, B, Hkv,
+                                          G, T, max_pages, softcap, scale,
+                                          s); break;
+    case 32: err = launch_dh<TQ, TKV, 32>(q, kp, vp, bt, cl, o, p, B, Hkv,
+                                          G, T, max_pages, softcap, scale,
+                                          s); break;
+    case 64: err = launch_dh<TQ, TKV, 64>(q, kp, vp, bt, cl, o, p, B, Hkv,
+                                          G, T, max_pages, softcap, scale,
+                                          s); break;
+    case 128: err = launch_dh<TQ, TKV, 128>(q, kp, vp, bt, cl, o, p, B, Hkv,
+                                            G, T, max_pages, softcap, scale,
+                                            s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace split
+
+// ---------------------------------------------------------------------------
+// Serial baseline: one CTA per (sequence, kv head), pages in series
+// ---------------------------------------------------------------------------
+namespace serial {
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -64,10 +405,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// q (B, H, dh); pages (P, T, H_kv, dh); block_tables (B, max_pages)
-// int32 padded with -1; context_lens (B,) int32; out (B, H, dh) in q's
-// type.  The query may be wider than the pages (f32 q over a bf16
-// cache), as the TPU kernel allows: both are read into f32.
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
@@ -172,7 +509,6 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   }
 }
 
-template <typename TQ, typename TKV>
 int launch(const void* q, const void* kp, const void* vp,
            const void* block_tables, const void* context_lens, void* o,
            int B, int H, int Hkv, int T_, int dh, int max_pages,
@@ -180,41 +516,50 @@ int launch(const void* q, const void* kp, const void* vp,
   if (B == 0) return cudaSuccess;
   const int G = H / Hkv;
   const size_t smem = sizeof(float) * (2 * G * dh + G * T_ + 3 * G);
-  auto kern = paged_decode_kernel<TQ, TKV>;
+  auto kern = paged_decode_kernel<__nv_bfloat16, __nv_bfloat16>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Hkv, B);
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), static_cast<const int*>(block_tables),
-      static_cast<const int*>(context_lens), static_cast<TQ*>(o), H, Hkv, T_,
-      dh, max_pages, softcap, scale);
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp),
+      static_cast<const int*>(block_tables),
+      static_cast<const int*>(context_lens), static_cast<__nv_bfloat16*>(o),
+      H, Hkv, T_, dh, max_pages, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace serial
+
 }  // namespace
 
-// softcap <= 0 means no cap.  Returns cudaGetLastError() of the launch.
+// The split-K entries.  `part` is f32 scratch of
+// B * H_kv * n_split * G * (dh + 2) floats, n_split = ceil(max_pages /
+// pps), pps = 64 / T for T < 64 else 1.  dh in {16, 32, 64, 128}, G = H /
+// H_kv in {1, 2, 4, 8}.  softcap <= 0 means no cap.  Both passes launch
+// on `stream`; returns cudaGetLastError() after them.
 extern "C" int paged_decode_f32(const void* q, const void* kp,
                                 const void* vp, const void* block_tables,
-                                const void* context_lens, void* o, int B,
-                                int H, int Hkv, int T, int dh, int max_pages,
-                                float softcap, float scale, void* stream) {
-  return launch<float, float>(q, kp, vp, block_tables, context_lens, o, B,
-                              H, Hkv, T, dh, max_pages, softcap, scale,
-                              stream);
+                                const void* context_lens, void* o,
+                                void* part, int B, int H, int Hkv, int T,
+                                int dh, int max_pages, float softcap,
+                                float scale, void* stream) {
+  return split::launch<float, float>(q, kp, vp, block_tables, context_lens,
+                                     o, part, B, H, Hkv, T, dh, max_pages,
+                                     softcap, scale, stream);
 }
 
 extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  const void* vp, const void* block_tables,
-                                 const void* context_lens, void* o, int B,
-                                 int H, int Hkv, int T, int dh,
-                                 int max_pages, float softcap, float scale,
-                                 void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(
-      q, kp, vp, block_tables, context_lens, o, B, H, Hkv, T, dh, max_pages,
-      softcap, scale, stream);
+                                 const void* context_lens, void* o,
+                                 void* part, int B, int H, int Hkv, int T,
+                                 int dh, int max_pages, float softcap,
+                                 float scale, void* stream) {
+  return split::launch<__nv_bfloat16, __nv_bfloat16>(
+      q, kp, vp, block_tables, context_lens, o, part, B, H, Hkv, T, dh,
+      max_pages, softcap, scale, stream);
 }
 
 // f32 query (and output) over bf16 pages.
@@ -222,10 +567,23 @@ extern "C" int paged_decode_f32_bf16(const void* q, const void* kp,
                                      const void* vp,
                                      const void* block_tables,
                                      const void* context_lens, void* o,
-                                     int B, int H, int Hkv, int T, int dh,
-                                     int max_pages, float softcap,
-                                     float scale, void* stream) {
-  return launch<float, __nv_bfloat16>(
-      q, kp, vp, block_tables, context_lens, o, B, H, Hkv, T, dh, max_pages,
-      softcap, scale, stream);
+                                     void* part, int B, int H, int Hkv,
+                                     int T, int dh, int max_pages,
+                                     float softcap, float scale,
+                                     void* stream) {
+  return split::launch<float, __nv_bfloat16>(
+      q, kp, vp, block_tables, context_lens, o, part, B, H, Hkv, T, dh,
+      max_pages, softcap, scale, stream);
+}
+
+// The serial baseline, bf16 only (the serve path's types).
+extern "C" int paged_decode_serial_bf16(const void* q, const void* kp,
+                                        const void* vp,
+                                        const void* block_tables,
+                                        const void* context_lens, void* o,
+                                        int B, int H, int Hkv, int T, int dh,
+                                        int max_pages, float softcap,
+                                        float scale, void* stream) {
+  return serial::launch(q, kp, vp, block_tables, context_lens, o, B, H,
+                        Hkv, T, dh, max_pages, softcap, scale, stream);
 }

@@ -1,17 +1,29 @@
-"""Flash attention (prefill): CUDA kernel for Hopper and its plain
-PyTorch version.
+"""Flash attention (prefill): CUDA kernels for Hopper and their plain
+PyTorch versions.
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py::flash_attention``.
-The kernel (``csrc/flash_attention.cu``, whose header says what bounds
-it on the H100 and how the design answers) takes one CTA per
-(batch, head, 64-row query tile), walks K/V tiles through shared memory
-with (m, l, acc) in registers, and masks a ragged sequence length
-itself — the TPU kernel needs ``S % block == 0``.
+``csrc/flash_attention.cu`` (whose header says what bounds it on the
+H100 and how the design answers) has two routes, both one CTA per
+(batch, head, 64-row query tile) walking K/V tiles with (m, l, acc) in
+registers and masking a ragged sequence length itself (the TPU kernel
+needs ``S % block == 0``):
+
+* ``"wgmma"`` — bfloat16 with a head width of 64 or 128: both products
+  on the tensor cores (wgmma), P rounded to bf16 before P·V, K/V tiles
+  in a two-stage cp.async ring.  Every pointer and every (batch, seq,
+  head) stride must be 16-byte aligned.
+* ``"scalar"`` — float32 (the tensor cores would mean TF32, beyond the
+  float32 tolerance) and bfloat16 at other head widths: both products
+  as f32 FMAs out of shared memory.
 
 :func:`flash_attention` dispatches on the device of its inputs: CPU
-tensors take :func:`reference_attention`, CUDA tensors launch the
-kernel or raise.  ``flash_attention.launches`` counts kernel launches.
+tensors take :func:`reference_attention`, CUDA tensors launch a kernel
+or raise.  :func:`route` is the explicit choice between the two kernels
+(dtype and head width).  ``flash_attention.launches`` counts kernel
+launches, ``flash_attention.route_launches`` the launches of each route.
+:func:`reference_attention_bf16_p` is a plain mirror of the tensor-core
+route's arithmetic (64-key tiles, online softmax, P in bf16).
 
 Layouts: q (B, H, S, dh) · k/v (B, H_kv, Sk, dh) → out (B, H, S, dh);
 any strides, with dh contiguous.
@@ -27,8 +39,18 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.38e38
-_ENTRY = {torch.float32: "flash_prefill_f32",
-          torch.bfloat16: "flash_prefill_bf16"}
+#: (route, dtype) → C entry point
+_ENTRY = {("scalar", torch.float32): "flash_prefill_f32",
+          ("scalar", torch.bfloat16): "flash_prefill_bf16",
+          ("wgmma", torch.bfloat16): "flash_prefill_bf16_wgmma"}
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_float, ctypes.c_void_p])
+_STRIDES = ctypes.c_longlong * 12
+#: head widths of the tensor-core route
+WGMMA_HEAD_DIMS = (64, 128)
+#: keys per tile of the tensor-core route
+BLOCK_K = 64
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,13 +67,7 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(S, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (k_pos <= q_pos)
-    if window is not None:
-        mask = mask & (q_pos - k_pos < window)
+    mask = _mask(S, Sk, causal, window, q.device)
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     any_valid = mask.any(dim=-1)[None, None, :, None]
@@ -60,12 +76,72 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _mask(S: int, Sk: int, causal: bool, window: Optional[int],
+          device) -> torch.Tensor:
+    """(S, Sk) bool: which keys each query row sees."""
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (q_pos - k_pos < window)
+    return mask
+
+
+def reference_attention_bf16_p(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None
+                               ) -> torch.Tensor:
+    """Plain mirror of the tensor-core route's arithmetic: an online
+    softmax over 64-key tiles in f32, with each tile's P rounded to
+    bfloat16 before P·V (the row sum l keeps the unrounded P); rows that
+    see no key → 0.  Same layouts as :func:`reference_attention`."""
+    B, H, S, dh = q.shape
+    H_kv, Sk = k.shape[1], k.shape[2]
+    group = H // H_kv
+    k = k.repeat_interleave(group, dim=1).float()
+    v = v.repeat_interleave(group, dim=1).float()
+    scale = 1.0 / (dh ** 0.5)
+    s_all = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
+    if softcap is not None:
+        s_all = softcap * torch.tanh(s_all / softcap)
+    mask = _mask(S, Sk, causal, window, q.device)
+    m = torch.full((B, H, S, 1), -math.inf, device=q.device)
+    l = torch.zeros((B, H, S, 1), device=q.device)
+    acc = torch.zeros((B, H, S, dh), device=q.device)
+    for k0 in range(0, Sk, BLOCK_K):
+        s = s_all[..., k0:k0 + BLOCK_K]
+        ok = mask[None, None, :, k0:k0 + BLOCK_K]
+        s = torch.where(ok, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        base = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp(m - base)
+        p = torch.exp(s - base)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+            v[:, :, k0:k0 + BLOCK_K])
+        m = m_new
+    out = torch.where(l > 0, acc / l.clamp_min(1e-30), 0.0)
+    return out.to(q.dtype)
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bfloat16 at a head
+    width of 64 or 128, ``"scalar"`` otherwise."""
+    if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "scalar"
+
+
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     """(batch, seq, head) element strides of a (B, H, S, dh) view."""
     return t.stride(0), t.stride(2), t.stride(1)
 
 
-def _launch(q, k, v, out, causal, window, softcap) -> None:
+def _launch(q, k, v, out, causal, window, softcap, which) -> None:
     B, H, S, dh = q.shape
     _, H_kv, Sk, _ = k.shape
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -76,42 +152,52 @@ def _launch(q, k, v, out, causal, window, softcap) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} needs a "
                              "contiguous head dimension")
-    if q.dtype not in _ENTRY:
-        raise ValueError(f"flash_attention: no kernel for {q.dtype}")
     if H % H_kv or dh > 256 or v.shape != k.shape or out.shape != q.shape:
         raise ValueError("flash_attention: shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} v "
                          f"{tuple(v.shape)} out {tuple(out.shape)}")
-    fn = getattr(build.library("flash_attention"), _ENTRY[q.dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    strides = (ctypes.c_longlong * 12)(
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out))
+    entry = _ENTRY.get((which, q.dtype))
+    if entry is None or (which == "wgmma" and dh not in WGMMA_HEAD_DIMS):
+        raise ValueError(f"flash_attention: no {which} kernel for "
+                         f"{q.dtype} at head width {dh}")
+    if which == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if t.data_ptr() % 16 or any(x % 8 for x in _strides(t)):
+                raise ValueError(
+                    f"flash_attention: {name} is not 16-byte aligned "
+                    f"(pointer {t.data_ptr():#x}, strides {t.stride()}); "
+                    "the tensor-core route copies 16-byte chunks")
+    fn = build.function("flash_attention", entry, _ARGTYPES)
+    strides = _STRIDES(*_strides(q), *_strides(k), *_strides(v),
+                       *_strides(out))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, H, H_kv, S, Sk, dh, strides, int(causal),
              int(window or 0), float(softcap or 0.0),
              1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention")
+    build.check(err, f"flash_attention ({which})")
     flash_attention.launches += 1
+    flash_attention.route_launches[which] += 1
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    kernel: Optional[str] = None) -> torch.Tensor:
     """q (B,H,S,dh) · k,v (B,H_kv,Sk,dh) → (B,H,S,dh) in q's dtype.
     ``out`` (a (B,H,S,dh) view, dh contiguous) receives the result on
-    the CUDA path."""
+    the CUDA path.  ``kernel`` names the route on CUDA tensors (default
+    :func:`route`); the scalar route takes every dtype and width."""
     if not q.is_cuda:
         return reference_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     if out is None:
         out = torch.empty_like(q)
-    _launch(q, k, v, out, causal, window, softcap)
+    _launch(q, k, v, out, causal, window, softcap,
+            kernel or route(q.dtype, q.shape[-1]))
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "scalar": 0}

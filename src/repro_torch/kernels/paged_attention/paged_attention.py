@@ -4,14 +4,22 @@ its plain PyTorch version.
 Replaces the Pallas TPU kernel
 ``repro/kernels/paged_attention/paged_attention.py::paged_attention``.
 The kernel (``csrc/paged_attention.cu``, whose header says what bounds
-it on the H100 and how the design answers) takes one CTA per
-(sequence, kv head), serving the G = H / H_kv query heads of the group
-from one read of each page, and walks the block table up to
-``ceil(ctx / T)`` pages, skipping −1 entries.
+it on the H100 and how the design answers) is flash-decoding in two
+passes launched by one C entry: pass 1 gives each (kv head, sequence,
+chunk of 64 tokens) a CTA that serves the G = H / H_kv query heads of
+the group from one read of the chunk's pages, skipping −1 entries and
+tokens past the context, and writes a partial (m, l, acc); pass 2
+merges a sequence's partials.  The number of chunks comes from the
+block table's width, so no context length is read to the host.
 
 :func:`paged_attention` dispatches on the device of its inputs: CPU
 tensors take :func:`reference_paged_attention`, CUDA tensors launch the
-kernel or raise.  ``paged_attention.launches`` counts kernel launches.
+kernel or raise.  ``paged_attention.launches`` counts kernel launches
+(one per call, both passes), ``paged_attention.route_launches`` those of
+the split kernel and of :func:`paged_attention_serial`, the first,
+serial kernel kept as the split kernel's timing baseline.
+:func:`reference_paged_attention_split` is a plain mirror of the split
+kernel's arithmetic (per-chunk partials, then the merge).
 
 Inputs:
   q            (B, H, dh)           one decode token per sequence
@@ -22,7 +30,8 @@ Inputs:
 Output: (B, H, dh) in q's dtype; q may be float32 over bfloat16 pages,
 as the TPU kernel allows.  A sequence with ``context_lens == 0`` gets
 zeros, as the TPU kernel gives (its ``ref.py`` would average V
-instead).
+instead).  The kernel takes dh in {16, 32, 64, 128} and G in
+{1, 2, 4, 8}.
 """
 from __future__ import annotations
 
@@ -35,10 +44,51 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.38e38
+#: tokens of one split of the page list (one page when pages are longer)
+CHUNK_TOKENS = 64
+HEAD_DIMS = (16, 32, 64, 128)
+GROUPS = (1, 2, 4, 8)
 #: (q dtype, page dtype) → C entry point
 _ENTRY = {(torch.float32, torch.float32): "paged_decode_f32",
           (torch.bfloat16, torch.bfloat16): "paged_decode_bf16",
           (torch.float32, torch.bfloat16): "paged_decode_f32_bf16"}
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+_SERIAL_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+
+def pages_per_split(page_tokens: int) -> int:
+    """Pages of one split: 64 tokens' worth, or one longer page."""
+    return max(1, CHUNK_TOKENS // page_tokens)
+
+
+def _dense(q, k_pages, v_pages, block_tables, context_lens):
+    """Pages gathered per sequence: k, v (B, max_pages·T, H, dh) in f32
+    with the kv heads repeated over each group, and the (B, max_pages·T)
+    mask of live tokens (before the context, on a page that is not −1)."""
+    B, H, dh = q.shape
+    P, T, H_kv, _ = k_pages.shape
+    max_pages = block_tables.shape[1]
+    group = H // H_kv
+    safe = block_tables.long().clamp_min(0)                # (B, max_pages)
+    k = k_pages[safe].reshape(B, max_pages * T, H_kv, dh)
+    v = v_pages[safe].reshape(B, max_pages * T, H_kv, dh)
+    k = k.repeat_interleave(group, dim=2).float()
+    v = v.repeat_interleave(group, dim=2).float()
+    pos = torch.arange(max_pages * T, device=q.device)[None, :]
+    page_ok = (block_tables >= 0)[:, :, None].expand(B, max_pages, T)
+    mask = (pos < context_lens[:, None].long()) \
+        & page_ok.reshape(B, max_pages * T)
+    return k, v, mask
+
+
+def _scores(q, k, softcap):
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s
 
 
 def reference_paged_attention(q, k_pages, v_pages, block_tables,
@@ -46,34 +96,46 @@ def reference_paged_attention(q, k_pages, v_pages, block_tables,
     """Plain version (transcribes ``ref.py``, with the kernel's zero
     output where no slot is valid): gathers pages into a dense KV per
     sequence and runs masked softmax attention in f32."""
-    B, H, dh = q.shape
-    P, T, H_kv, _ = k_pages.shape
-    max_pages = block_tables.shape[1]
-    group = H // H_kv
-
-    safe = block_tables.long().clamp_min(0)                # (B, max_pages)
-    k = k_pages[safe].reshape(B, max_pages * T, H_kv, dh)
-    v = v_pages[safe].reshape(B, max_pages * T, H_kv, dh)
-    k = k.repeat_interleave(group, dim=2)
-    v = v.repeat_interleave(group, dim=2)
-
-    scale = 1.0 / (dh ** 0.5)
-    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    pos = torch.arange(max_pages * T, device=q.device)[None, :]
-    page_ok = (block_tables >= 0)[:, :, None].expand(B, max_pages, T)
-    mask = (pos < context_lens[:, None].long()) \
-        & page_ok.reshape(B, max_pages * T)
+    k, v, mask = _dense(q, k_pages, v_pages, block_tables, context_lens)
+    s = _scores(q, k, softcap)
     s = torch.where(mask[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhk,bkhd->bhd", p, v.float())
+    out = torch.einsum("bhk,bkhd->bhd", p, v)
     out = torch.where(mask.any(dim=-1)[:, None, None], out, 0.0)
     return out.to(q.dtype)
 
 
-def _launch(q, k_pages, v_pages, block_tables, context_lens, out,
-            softcap) -> None:
+def reference_paged_attention_split(q, k_pages, v_pages, block_tables,
+                                    context_lens, *, softcap=None):
+    """Plain mirror of the split kernel: each chunk of
+    ``pages_per_split(T)`` pages gives a partial (m, l, acc) over its
+    live tokens (m = −inf, l = 0, acc = 0 where it has none), and the
+    partials merge as ``Σ e^(m_c − M) acc_c / Σ e^(m_c − M) l_c`` with
+    M the largest m; no live token → 0."""
+    B, H, dh = q.shape
+    T = k_pages.shape[1]
+    k, v, mask = _dense(q, k_pages, v_pages, block_tables, context_lens)
+    s = torch.where(mask[:, None, :], _scores(q, k, softcap), -math.inf)
+    chunk = pages_per_split(T) * T
+    n = -(-s.shape[-1] // chunk)
+    pad = n * chunk - s.shape[-1]
+    s = torch.nn.functional.pad(s, (0, pad), value=-math.inf) \
+        .reshape(B, H, n, chunk)
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) \
+        .reshape(B, n, chunk, H, dh)
+    m = s.amax(dim=-1, keepdim=True)                       # (B, H, n, 1)
+    p = torch.exp(s - torch.where(m == -math.inf, 0.0, m))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhnk,bnkhd->bhnd", p, v)
+    big = m.amax(dim=2, keepdim=True)
+    w = torch.exp(m - torch.where(big == -math.inf, 0.0, big))
+    num = (w * acc).sum(dim=2)
+    den = (w * l).sum(dim=2)
+    out = torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
+    return out.to(q.dtype)
+
+
+def _check(q, k_pages, v_pages, block_tables, context_lens, out) -> None:
     B, H, dh = q.shape
     P, T, H_kv, _ = k_pages.shape
     kv_dtype = k_pages.dtype
@@ -86,26 +148,38 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, out,
             raise ValueError(f"paged_attention: {name} must be a "
                              f"contiguous CUDA {dtype} tensor, got "
                              f"{t.dtype} on {t.device}")
-    entry = _ENTRY.get((q.dtype, kv_dtype))
-    if entry is None:
-        raise ValueError(f"paged_attention: no kernel for {q.dtype} "
-                         f"queries over {kv_dtype} pages")
     if (H % H_kv or v_pages.shape != k_pages.shape or k_pages.shape[3] != dh
             or block_tables.shape[0] != B or context_lens.shape != (B,)):
         raise ValueError("paged_attention: shapes q "
                          f"{tuple(q.shape)} pages {tuple(k_pages.shape)} "
                          f"tables {tuple(block_tables.shape)}")
-    fn = getattr(build.library("paged_attention"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+
+
+def _launch(q, k_pages, v_pages, block_tables, context_lens, out,
+            softcap) -> None:
+    _check(q, k_pages, v_pages, block_tables, context_lens, out)
+    B, H, dh = q.shape
+    P, T, H_kv, _ = k_pages.shape
+    entry = _ENTRY.get((q.dtype, k_pages.dtype))
+    if entry is None:
+        raise ValueError(f"paged_attention: no kernel for {q.dtype} "
+                         f"queries over {k_pages.dtype} pages")
+    if dh not in HEAD_DIMS or H // H_kv not in GROUPS:
+        raise ValueError(f"paged_attention: no kernel for head width {dh} "
+                         f"and group {H // H_kv}")
+    max_pages = block_tables.shape[1]
+    n_split = -(-max_pages // pages_per_split(T))
+    part = torch.empty(B * H_kv * n_split * (H // H_kv) * (dh + 2),
+                       dtype=torch.float32, device=q.device)
+    fn = build.function("paged_attention", entry, _ARGTYPES)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), context_lens.data_ptr(),
-             out.data_ptr(), B, H, H_kv, T, dh, block_tables.shape[1],
+             out.data_ptr(), part.data_ptr(), B, H, H_kv, T, dh, max_pages,
              float(softcap or 0.0), 1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention")
     paged_attention.launches += 1
+    paged_attention.route_launches["split"] += 1
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -121,4 +195,29 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def paged_attention_serial(q, k_pages, v_pages, block_tables, context_lens,
+                           *, softcap=None) -> torch.Tensor:
+    """The first kernel of the port (one CTA per (sequence, kv head),
+    pages in series), bfloat16 on CUDA only: the baseline that
+    ``chip_smoke.py`` times beside the split kernel.  No path calls it."""
+    out = torch.empty_like(q)
+    _check(q, k_pages, v_pages, block_tables, context_lens, out)
+    if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16:
+        raise ValueError("paged_attention_serial: bfloat16 only")
+    B, H, dh = q.shape
+    P, T, H_kv, _ = k_pages.shape
+    fn = build.function("paged_attention", "paged_decode_serial_bf16",
+                        _SERIAL_ARGTYPES)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), context_lens.data_ptr(),
+             out.data_ptr(), B, H, H_kv, T, dh, block_tables.shape[1],
+             float(softcap or 0.0), 1.0 / math.sqrt(dh),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_attention_serial")
+    paged_attention.launches += 1
+    paged_attention.route_launches["serial"] += 1
+    return out
+
+
 paged_attention.launches = 0
+paged_attention.route_launches = {"split": 0, "serial": 0}
