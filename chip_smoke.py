@@ -20,13 +20,23 @@ each reported on its own line:
    split of -1 pages;
 3. ``control`` — the control tick on the card against the same tick on
    the CPU for a seeded 4096-row state;
-4. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
+4. ``quantum`` — the batched admission path: the ``admit_quantum`` kernel
+   against its plain version (decisions identical, not within a
+   tolerance) on a seeded quantum of 65,536 requests over 4,096
+   entitlements that reaches every reason code, and on edge cases; the
+   batched tick of 8 pools x 100,000 rows on the card against the CPU;
+   one 10,000-request ``Gateway.handle_quantum`` over 512 entitlements
+   on a pool on the card against one on the CPU; and the paper's
+   Experiments 1 and 2 and the multi-pool routing scenario (quantum and
+   scalar admission) through the port's simulators on the card against
+   the CPU, with the kernel's launches counted on that path;
+5. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
    full-depth Qwen3-8B (bf16, random init from ``--seed``) serving a
    guaranteed and a spot tenant; every flash launch on this path must
    take the tensor-core route and every paged launch the split kernel,
    and a reduced model served on the card must give the same greedy
    tokens as on the CPU;
-5. ``profile`` — a decode step and a prefill of 8 lanes on the same
+6. ``profile`` — a decode step and a prefill of 8 lanes on the same
    model, on the host clock and under ``torch.profiler`` (device time
    by kernel).
 
@@ -34,9 +44,9 @@ Then a ``timer`` line gives each kernel, the kernel it replaced and the
 library call timed once more with the first port's serial timer (host
 time inside the window), one JSON line describes each kernel (launches
 on the serve path, error against the plain version, device times at
-the serve path's shapes of the kernel, the kernel it replaced, its
-plain version and the library call, and the card's bound for that
-work), and the last line is the result.  Any failure exits non-zero
+the path's shapes of the kernel, the kernel it replaced, its plain
+version and the library call, and the card's bound for that work), and
+the last line is the result.  Any failure exits non-zero
 before the result line.
 """
 from __future__ import annotations
@@ -65,12 +75,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
+ADMIT_SRC = "src/repro_torch/kernels/csrc/admit_quantum.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:85"
 PAGED_TPU = "src/repro/kernels/paged_attention/paged_attention.py:85"
+#: not a Pallas kernel: the jitted lax.fori_loop of the JAX package
+ADMIT_TPU = "src/repro/core/vectorized.py:68"
 #: the port's kernel functions, as the profiler names them
 PORT_KERNELS = ("flash_prefill_wgmma_kernel", "flash_prefill_kernel",
                 "paged_split_kernel", "paged_merge_kernel",
-                "paged_decode_kernel")
+                "paged_decode_kernel", "admit_quantum_kernel")
 
 
 class PhaseFailed(RuntimeError):
@@ -383,6 +396,458 @@ def phase_control(torch, np, seed: int) -> None:
 
 
 # -- phase 4 -------------------------------------------------------------------
+#: Scenarios of the paper's experiments and of the multi-pool example,
+#: with their parameters kept here (the script imports nothing of the
+#: JAX package and nothing of ``benchmarks/``): Experiment 1 (§5.2,
+#: ``benchmarks/experiment1_protection.py``), Experiment 2 (§5.3,
+#: ``benchmarks/experiment2_fairshare.py``) and
+#: ``examples/multi_pool_routing.py``.
+EXP1_SERVICE_S = 64.0 / (240.0 / 16.0)       # one request on 1/16 replica
+
+
+def exp1_sim(serving, core, admission: bool, device: str):
+    rate = lambda slots: slots / EXP1_SERVICE_S          # noqa: E731
+    sc, wl = core.ServiceClass, serving.Workload
+    return serving.ServingSimulator(
+        [wl(name="guaranteed-a", service_class=sc.GUARANTEED, slots=6,
+            slo_ms=200.0, rate_rps=rate(6)),
+         wl(name="spot-b", service_class=sc.SPOT, slots=10,
+            slo_ms=30000.0, rate_rps=rate(10)),
+         wl(name="guaranteed-c", service_class=sc.GUARANTEED, slots=6,
+            slo_ms=200.0, rate_rps=rate(6), start_s=30.0, end_s=60.0)],
+        replica_slots=16, replica_tps=240.0, n_replicas=1,
+        admission=admission, device=device)
+
+
+def exp2_sim(serving, core, device: str):
+    sc, wl = core.ServiceClass, serving.Workload
+    sim = serving.ServingSimulator(
+        [wl(name="elastic-copilot", service_class=sc.ELASTIC, slots=5,
+            slo_ms=500.0, rate_rps=2.33, in_tokens=32, out_tokens=32,
+            max_retries=2),
+         wl(name="elastic-synth", service_class=sc.ELASTIC, slots=5,
+            slo_ms=30000.0, rate_rps=2.33, in_tokens=64, out_tokens=64,
+            max_retries=2),
+         wl(name="elastic-reports", service_class=sc.ELASTIC, slots=5,
+            slo_ms=5000.0, rate_rps=0.67, in_tokens=80, out_tokens=96,
+            start_s=210.0, max_retries=2)],
+        replica_slots=8, replica_tps=120.0, n_replicas=2, admission=True,
+        coeff=core.PriorityCoefficients(alpha_slo=2.0, alpha_burst=1.0,
+                                        alpha_debt=4.0, gamma_debt=0.7),
+        fixed_avg_slo_ms=15250.0, bucket_window_s=60.0, device=device)
+    sim.at(30.0, "fail_replica", idx=1)
+    sim.at(120.0, "recover_replica", idx=1)
+    return sim
+
+
+def routing_sim(serving, core, mode: str, device: str):
+    sc, wl = core.ServiceClass, serving.Workload
+    sim = serving.MultiPoolSimulator(
+        workloads=[wl(name="prod-chat", service_class=sc.GUARANTEED,
+                      slots=6, slo_ms=500.0, rate_rps=1.4,
+                      pools=("east", "west")),
+                   wl(name="batch-eval", service_class=sc.SPOT, slots=8,
+                      slo_ms=30000.0, rate_rps=3.0, pools=("west", "east"),
+                      max_retries=1)],
+        sites=[serving.PoolSite("east", n_replicas=1, replica_slots=8,
+                                replica_tps=120.0),
+               serving.PoolSite("west", n_replicas=2, replica_slots=8,
+                                replica_tps=120.0)],
+        admission_mode=mode, device=device)
+    sim.at(20.0, "fail_replica", pool="east", idx=0)
+    sim.at(40.0, "recover_replica", pool="east", idx=0)
+    return sim
+
+
+def sim_record(sim) -> tuple:
+    """Every request's outcome and timestamps, the timeline and every
+    tick record of a finished simulation."""
+    reqs = [(r.request_id, r.state.value, r.arrival_s, r.admitted_s,
+             r.first_token_s, r.finished_s, r.priority, r.deny_reason,
+             r.retry_after_s, r.pool, r.spill_hops)
+            for r in sim.requests.values()]
+    pools = ({"sim-pool": sim.pool.history} if hasattr(sim, "pool")
+             else sim.tick_records)
+    ticks = {name: [(h.t, h.allocations, h.priorities, h.debts, h.bursts,
+                     h.in_flight, h.demand_tps) for h in recs]
+             for name, recs in pools.items()}
+    line = [(p.t, p.running, p.waiting, p.per_ent_running)
+            for p in getattr(sim, "timeline", [])]
+    return reqs, ticks, line
+
+
+def ttft_p99(np, sim, ent: str, t0: float, t1: float) -> float:
+    vals = [r.ttft for r in sim.requests.values()
+            if r.entitlement == ent and r.ttft is not None
+            and t0 <= r.arrival_s < t1]
+    return float(np.percentile(vals, 99)) if vals else float("nan")
+
+
+def admit_case(np, torch, r, n: int, m: int, **over):
+    """Inputs of one ``admit_scan`` call on the CPU: the distribution of
+    ``benchmarks/admission_throughput.py::vectorized_admission_rate``
+    (random classes, Eq. 1 weights from random SLOs, 128-token
+    requests) with tight buckets, some unbound rows, some rows at a
+    concurrency limit of 1, some KV ceilings and a contended pool, so
+    that every reason code occurs; ``over`` replaces any column or
+    scalar."""
+    from repro_torch.core import control_plane as cp
+    cols = dict(
+        class_code=r.randint(0, 5, n).astype(np.int32),
+        bound=r.random_sample(n) < 0.97,
+        baseline_tps=r.uniform(10, 100, n).astype(np.float32),
+        baseline_kv=np.where(r.random_sample(n) < 0.2, 3 * 128 * 1000.0,
+                             0.0).astype(np.float32),
+        baseline_conc=np.where(r.random_sample(n) < 0.1, 1.0,
+                               64.0).astype(np.float32),
+        slo_ms=r.uniform(100, 30000, n).astype(np.float32),
+        burst=np.zeros(n, np.float32), debt=np.zeros(n, np.float32))
+    rows = dict(bucket_level=r.uniform(0, 2000, n).astype(np.float32),
+                in_flight=r.randint(0, 3, n).astype(np.int32),
+                kv_in_use=np.zeros(n, np.float32))
+    reqs = dict(req_ent=r.randint(0, n, m).astype(np.int32),
+                req_tokens=np.full(m, 128.0, np.float32),
+                req_kv=np.where(r.random_sample(m) < 0.3, 128 * 1000.0,
+                                0.0).astype(np.float32),
+                req_live=np.ones(m, bool))
+    scal = dict(pool_in_flight=5000, pool_resident=4096.0,
+                pool_conc_cap=4096.0, running_min=5.0, slack_factor=1.0)
+    for k, v in over.items():
+        for d in (cols, rows, reqs, scal):
+            if k in d:
+                d[k] = v
+    state = cp.ControlState(**{k: torch.from_numpy(v.copy())
+                               for k, v in cols.items()})
+    weights = cp.priority_rows(state, torch.tensor(1000.0),
+                               cp.PriorityCoefficients())
+    args = (state.class_code, state.bound, state.baseline_kv,
+            state.baseline_conc, weights,
+            *(torch.from_numpy(v.copy()) for v in rows.values()),
+            *(torch.from_numpy(v.copy()) for v in reqs.values()))
+    return args, {k: (np.float32(v) if isinstance(v, float) else v)
+                  for k, v in scal.items()}
+
+
+def admit_edge_cases(np, torch, seed: int):
+    """(label, args, scalars): the decision-parity regressions of the
+    reference's tests and the places where exactness is likely to
+    break."""
+    r = np.random.RandomState(seed + 13)
+    n = 64
+    el = np.full(n, 2, np.int32)                   # elastic: burst-capable
+    cases = [
+        # burst escape with free slots, until the pool turns contended
+        ("burst escape", dict(class_code=el, baseline_conc=np.full(
+            n, 2.0, np.float32), in_flight=np.full(n, 2, np.int32),
+            bucket_level=np.full(n, 1e6, np.float32), pool_in_flight=0,
+            pool_resident=10.0, pool_conc_cap=16.0), 40),
+        # guaranteed over r_e: no escape even with free slots
+        ("guaranteed over r_e", dict(class_code=np.full(n, 1, np.int32),
+            baseline_conc=np.full(n, 2.0, np.float32),
+            in_flight=np.full(n, 2, np.int32), pool_in_flight=0,
+            pool_resident=10.0, pool_conc_cap=16.0), 40),
+        # the escape closed: contended although slots are free
+        ("escape closed when contended", dict(class_code=el,
+            baseline_conc=np.full(n, 1.0, np.float32),
+            in_flight=np.full(n, 1, np.int32), pool_in_flight=20,
+            pool_resident=3.0, pool_conc_cap=16.0), 40),
+        # spot with no limit is bounded by the pool's concurrency
+        ("spot without a limit", dict(class_code=np.full(n, 3, np.int32),
+            baseline_conc=np.zeros(n, np.float32),
+            in_flight=r.randint(14, 18, n).astype(np.int32),
+            pool_conc_cap=16.0, pool_in_flight=0), 200),
+        # int32 against float32: 2^24 + 1 rounds to 2^24 as JAX promotes
+        ("int to float promotion", dict(
+            baseline_conc=np.full(n, 16777216.0, np.float32),
+            in_flight=np.full(n, 16777217, np.int32),
+            pool_in_flight=16777217, pool_conc_cap=16777216.0,
+            running_min=1e9), 200),
+        # padding rows: reasons computed, nothing admitted or charged
+        ("padding rows", dict(req_live=np.arange(300) % 3 == 0), 300),
+        # quanta that end inside a chunk of the kernel's walk
+        ("one request", {}, 1),
+        ("1,025 requests", {}, 1025),
+    ]
+    for label, over, m in cases:
+        yield (label, *admit_case(np, torch, r, n, m, **over))
+    # the threshold tie: requests whose own row sets the running min —
+    # strict > denies them without slack, slack admits them
+    tie_draw = dict(class_code=np.full(n, 3, np.int32),
+                    bound=np.ones(n, bool),
+                    baseline_conc=np.full(n, 64.0, np.float32),
+                    bucket_level=np.full(n, 1e6, np.float32),
+                    baseline_kv=np.zeros(n, np.float32),
+                    req_ent=np.full(50, 7, np.int32))
+    probe, _ = admit_case(np, torch, np.random.RandomState(seed + 29), n,
+                          50, **tie_draw)
+    tie = float(probe[4][7])
+    for slack in (0.0, 0.5):
+        yield (f"threshold tie, slack {slack}", *admit_case(
+            np, torch, np.random.RandomState(seed + 29), n, 50,
+            running_min=tie, slack_factor=float(np.float32(1.0 - slack)),
+            **tie_draw))
+    # more rows than shared memory holds: bucket and KV in global scratch
+    yield ("32,768 rows (global scratch)",
+           *admit_case(np, torch, r, 32768, 20000))
+
+
+def phase_quantum(torch, np, seed: int, card: str) -> dict:
+    """The batched admission path on the card (see the module
+    docstring).  Returns the ``admit_quantum`` kernel's report entry."""
+    import repro_torch.core as core
+    import repro_torch.serving as serving
+    from repro_torch.core import control_plane as cp
+    from repro_torch.gateway import Gateway, QuantumRequest
+    aq_mod = importlib.import_module(
+        "repro_torch.kernels.admit_quantum.admit_quantum")
+    admit_scan = aq_mod.admit_scan
+
+    def on(dev, args):
+        return tuple(a.to(dev) for a in args)
+
+    def same(out_k, out_p) -> int:
+        """Number of requests whose admit bit, reason or priority bits
+        differ between the kernel and the plain version."""
+        a, rs, w = (x.cpu() for x in out_k)
+        pa, prs, pw = out_p
+        bad = (a != pa) | (rs != prs) | (w.view(torch.int32)
+                                         != pw.view(torch.int32))
+        return int(bad.sum())
+
+    # a plain version reached with CUDA tensors would be a silent
+    # fallback: count such calls for the whole phase
+    plain_on_cuda = [0]
+    plain = aq_mod.reference_admit_scan
+
+    def guarded(*a, **kw):
+        plain_on_cuda[0] += int(a[8].is_cuda)
+        return plain(*a, **kw)
+
+    aq_mod.reference_admit_scan = guarded
+    try:
+        # 1. kernel against plain at the benchmark's size, then edges
+        n, m = 4096, 65536
+        args, scal = admit_case(np, torch, np.random.RandomState(seed), n, m)
+        out_p = plain(*args, **scal)
+        dev_args = on("cuda", args)
+        out_k = admit_scan(*dev_args, **scal)
+        torch.cuda.synchronize()
+        diff = same(out_k, out_p)
+        check(diff == 0, f"quantum: admit_quantum kernel and plain version "
+                         f"disagree on {diff} of {m} requests")
+        codes = np.bincount(out_p[1].numpy(), minlength=5).tolist()
+        check(all(codes), f"quantum: the draw missed a reason code: {codes}")
+        edges = []
+        for label, e_args, e_scal in admit_edge_cases(np, torch, seed):
+            e_p = plain(*e_args, **e_scal)
+            e_k = admit_scan(*on("cuda", e_args), **e_scal)
+            torch.cuda.synchronize()
+            d = same(e_k, e_p)
+            check(d == 0, f"quantum: edge case '{label}': kernel and plain "
+                          f"version disagree on {d} requests")
+            edges.append(f"{label} {np.bincount(e_p[1].numpy(), minlength=5).tolist()}")
+        timer = Timer(torch)
+        kernel_ms = timer.ms(lambda: admit_scan(*dev_args, **scal))
+        t = time.perf_counter()
+        plain(*args, **scal)
+        plain_ms = 1e3 * (time.perf_counter() - t)
+        row_bytes = sum(a.element_size() for a in args[:8]) * n
+        req_bytes = sum(a.element_size() for a in args[8:]) * m
+        out_bytes = (1 + 4 + 4) * m
+        t_bytes = (row_bytes + req_bytes + out_bytes) / HBM_BYTES_S
+        # ~24 operations a request (compares, selects, two adds, one
+        # multiply, the gather's index arithmetic)
+        t_ops = 24.0 * m / PEAK_FLOPS["float32"]
+        print(f"quantum kernel: admit_quantum N={n} M={m}, reasons "
+              f"0-4 {codes}: decisions identical to the plain version "
+              f"(admit bits, reasons, priority bits); edge cases identical "
+              f"(reasons 0-4): " + "; ".join(edges)
+              + f"; {kernel_ms:.4f} ms on the card "
+              f"({1e6 * kernel_ms / m:.1f} ns a request), plain version on "
+              f"the CPU {plain_ms:.1f} ms (host clock); card {card}")
+
+        # 2. the batched tick, 8 pools x 100,000 rows
+        P, rows_n = 8, 100_000
+        width = cp.bucket_width(rows_n)
+        pools = [seeded_state(np, seed + 100 + k, rows_n) for k in range(P)]
+        ins = [np.zeros((P, width), np.float32) for _ in range(4)]
+        for k, (_, pin, _, _) in enumerate(pools):
+            for i in range(4):
+                ins[i][k, :rows_n] = pin[i]
+        caps = np.array([c for _, _, c, _ in pools], np.float32)
+        slos = np.array([s for _, _, _, s in pools], np.float32)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            states = cp.stack_states(
+                [cp.ControlState(**{k: torch.from_numpy(v.copy()).to(dev)
+                                    for k, v in cols.items()})
+                 for cols, _, _, _ in pools], width=width)
+            t = time.perf_counter()
+            new, alloc, w = cp.control_tick_pools(
+                states, torch.from_numpy(caps).to(dev),
+                *(torch.from_numpy(x).to(dev) for x in ins),
+                torch.from_numpy(slos).to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            outs[dev] = ({"burst": new.burst.cpu().numpy(),
+                          "debt": new.debt.cpu().numpy(),
+                          "alloc": alloc.cpu().numpy(),
+                          "weights": w.cpu().numpy()}, secs)
+        (g, g_s), (c, c_s) = outs["cuda"], outs["cpu"]
+        check(bool(((g["alloc"] > 0) == (c["alloc"] > 0)).all()),
+              "quantum: batched tick funds other rows on CUDA than on CPU")
+        worst = {k: ulps(np, g[k], c[k]) for k in g}
+        check(max(worst.values()) <= 4,
+              f"quantum: batched tick CUDA vs CPU beyond 4 ulps: {worst}")
+        print(f"quantum tick: control_tick_pools {P} pools x {rows_n} rows "
+              f"(width {width}) on cuda vs cpu: funded rows equal, max ulps "
+              f"{worst} (bound 4); {1e3 * g_s:.1f} ms on the card, "
+              f"{1e3 * c_s:.1f} ms on the CPU (host clock, first call); "
+              f"card {card}")
+
+        # 3. one 10,000-request quantum through the gateway
+        def gateway(dev):
+            pool = core.TokenPool(core.PoolSpec(
+                name="p", model="m", scaling=core.ScalingBounds(1, 1),
+                per_replica=core.Resources(1e9, 1e15, 1e6)), device=dev)
+            gw = Gateway(pool)
+            for i in range(512):
+                pool.add_entitlement(core.EntitlementSpec(
+                    name=f"e{i}", tenant_id=f"t{i}", pool="p",
+                    qos=core.QoS(core.ServiceClass.ELASTIC, 1000.0),
+                    baseline=core.Resources(1e6, 0.0, 1e3)))
+                gw.register_key(f"k{i}", f"e{i}", pool="p")
+            return gw
+
+        def quantum(tag):
+            return [QuantumRequest(f"k{i % 512}", f"{tag}{i}", 64, 64)
+                    for i in range(10_000)]
+
+        # a warm-up quantum and a second one compared between the
+        # devices, then two more timed on the card alone
+        resp, best = {}, float("inf")
+        admit_scan.launches = 0
+        for dev in ("cuda", "cpu"):
+            gw = gateway(dev)
+            resp[dev] = []
+            for rep in range(4 if dev == "cuda" else 2):
+                qs = quantum(f"q{rep}-")
+                t = time.perf_counter()
+                out = gw.handle_quantum(qs, 0.0)
+                if rep:
+                    best = min(best, time.perf_counter() - t)
+                if rep < 2:
+                    resp[dev] += [tuple(x) for x in out]
+                if rep == 1:
+                    resp[dev].append([gw.pool.ledger.bucket(f"e{i}").level
+                                      for i in range(512)])
+            if dev == "cuda":
+                gw_best, best = best, float("inf")
+        gw_launches = admit_scan.launches
+        bad = [i for i, (a, b) in enumerate(zip(resp["cuda"], resp["cpu"]))
+               if a != b]
+        check(len(resp["cuda"]) == len(resp["cpu"]) and not bad,
+              f"quantum: handle_quantum on a CUDA pool and on a CPU pool "
+              f"gave different responses or bucket levels, first at "
+              f"{bad[:1]}")
+        check(gw_launches == 4, f"quantum: {gw_launches} kernel launches for "
+              "4 gateway quanta on the card")
+        print(f"quantum gateway: handle_quantum of 10,000 requests over 512 "
+              f"entitlements, responses identical on cuda and cpu; "
+              f"{10_000 / gw_best:.0f} decisions/s on the card (best of 3 "
+              f"after a warm-up, host clock, all bookkeeping), {10_000 / best:.0f} "
+              f"on the CPU (one quantum after a warm-up); card {card}")
+
+        # 4. the paper's experiments and the multi-pool scenario; the
+        # kernel's launches are counted on the card's quantum-mode runs
+        admit_scan.launches = 0
+        recs, claims = {}, []
+        for dev in ("cuda", "cpu"):
+            for name, make in (
+                    ("exp1 admission", lambda: exp1_sim(serving, core, True,
+                                                        dev)),
+                    ("exp1 baseline", lambda: exp1_sim(serving, core, False,
+                                                       dev)),
+                    ("exp2", lambda: exp2_sim(serving, core, dev)),
+                    ("routing quantum", lambda: routing_sim(
+                        serving, core, "quantum", dev)),
+                    ("routing scalar", lambda: routing_sim(
+                        serving, core, "scalar", dev))):
+                sim = make()
+                t = time.perf_counter()
+                sim.run(300.0 if name == "exp2" else
+                        60.0 if name.startswith("routing") else 90.0)
+                recs[dev, name] = (sim_record(sim),
+                                   time.perf_counter() - t, sim)
+        launches = admit_scan.launches
+        for name in ("exp1 admission", "exp1 baseline", "exp2",
+                     "routing quantum", "routing scalar"):
+            check(recs["cuda", name][0] == recs["cpu", name][0],
+                  f"quantum: {name} differs between cuda and cpu (requests, "
+                  "tick records or timeline)")
+        check(launches > 0, "quantum: admit_quantum never launched on the "
+                            "card's quantum-mode run")
+        check(not plain_on_cuda[0], f"quantum: the plain version was called "
+              f"on CUDA tensors {plain_on_cuda[0]} times")
+    finally:
+        aq_mod.reference_admit_scan = plain
+
+    e1, e1b = recs["cuda", "exp1 admission"][2], recs["cuda", "exp1 baseline"][2]
+    e2, rq = recs["cuda", "exp2"][2], recs["cuda", "routing quantum"][2]
+    for arm, sim in (("token pools", e1), ("baseline", e1b)):
+        p99 = [ttft_p99(np, sim, "guaranteed-a", a, b)
+               for a, b in ((0, 30), (30, 60), (60, 90))]
+        claims.append(f"exp1 {arm}: guaranteed-a TTFT P99 by phase "
+                      f"{p99[0]:.3f} / {p99[1]:.3f} / {p99[2]:.3f} s, max "
+                      f"queue {max(p.waiting for p in sim.timeline)}")
+
+    def spot_share(t0, t1):
+        pts = [p for p in e1.timeline if t0 <= p.t < t1 and p.running]
+        return sum(p.per_ent_running.get("spot-b", 0) / p.running
+                   for p in pts) / max(len(pts), 1)
+
+    spot = [r for r in e1.requests.values()
+            if r.entitlement == "spot-b" and 30 <= r.arrival_s < 60]
+    claims.append(
+        f"exp1 spot share by phase {spot_share(10, 30):.2f} / "
+        f"{spot_share(35, 60):.2f} / {spot_share(65, 90):.2f}, spot "
+        f"throttled in phase 2 "
+        f"{sum(r.state.value == 'denied' for r in spot) / len(spot):.2f}")
+    claims.append("exp2 low-priority denials " + ", ".join(
+        f"{w} {e2.pool.status[w].denied_low_priority}" for w in e2.workloads)
+        + "; peak debt " + ", ".join(
+            f"{w} {max(h.debts.get(w, 0.0) for h in e2.pool.history):.3f}"
+            for w in e2.workloads))
+    prod = [r for r in rq.requests.values() if r.entitlement == "prod-chat"]
+    claims.append(f"routing (quantum): prod-chat spilled "
+                  f"{sum(r.spill_hops > 0 for r in prod)}, denied "
+                  f"{sum(r.state.value == 'denied' for r in prod)}")
+    wall = {(dev, name): secs for (dev, name), (_, secs, _) in recs.items()}
+    secs = ", ".join(f"{name} {wall['cuda', name]:.2f} / "
+                     f"{wall['cpu', name]:.2f} s"
+                     for name in ("exp1 admission", "exp1 baseline", "exp2",
+                                  "routing quantum", "routing scalar"))
+    print("quantum experiments: requests, tick records and timelines "
+          "identical on cuda and cpu for exp1 (both arms), exp2 and the "
+          f"routing scenario (both modes); admit_quantum launches on the "
+          f"card's run {launches}; plain calls on CUDA {plain_on_cuda[0]}; "
+          f"wall cuda / cpu: {secs}; card {card}")
+    for line in claims:
+        print(f"quantum claim: {line}; card {card}")
+    return {
+        "name": "admit_quantum", "route": "cuda", "source": ADMIT_SRC,
+        "replaces": ADMIT_TPU, "launches": launches, "max_abs_err": 0.0,
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": None,
+        "shape": f"N={n} rows, M={m} requests; plain version on the CPU "
+                 "(host clock); bound excludes the serial chain of M steps",
+    }
+
+
+# -- phase 5 -------------------------------------------------------------------
 def workload(np, seed: int, n: int, vocab: int):
     """Prompts of 32–512 tokens drawn from ``seed``, alternating
     tenants, one arrival every 0.25 simulated seconds."""
@@ -812,11 +1277,13 @@ def main(argv=None) -> int:
 
     phase = "build"
     try:
-        phase_build()
+        card = phase_build()["card"]
         phase = "kernels"
         errs = phase_kernels(torch, args.seed)
         phase = "control"
         phase_control(torch, np, args.seed)
+        phase = "quantum"
+        admit_report = phase_quantum(torch, np, args.seed, card)
         phase = "serve"
         served = phase_serve(torch, np, args.seed, args.requests)
         phase_small_reference(torch, np, args.seed)
@@ -824,6 +1291,7 @@ def main(argv=None) -> int:
         phase_profile(torch, np, args.seed, served)
         phase = "kernel report"
         report = kernel_report(torch, args.seed, served, errs)
+        report.append(admit_report)
         card = card_line()
     except Exception:                     # noqa: BLE001 — report and fail
         traceback.print_exc()

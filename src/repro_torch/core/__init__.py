@@ -4,19 +4,28 @@ Counterpart of ``repro.core``, holding what the token-pool-gated serve
 path uses:
 
 - types: ServiceClass, Resources, QoS, EntitlementSpec, PoolSpec, ...
-- control_plane: THE tick (``control_tick``) over rows of tensors
+- control_plane: THE tick over rows of tensors (single pool and the
+  batched multi-pool tick), plus the scalar test oracle
 - priority: Eq. (1)-(3) scalar math
 - resident: ResidentStore — the structure-of-arrays that OWNS each
   pool's control-plane state, mirrored on the pool's device
 - pool: TokenPool controller (stateful shell over the control plane)
-- pool_manager: PoolManager (membership, spill-over routing,
+- pool_manager: PoolManager (batched fleet tick, spill-over routing,
   completion attribution)
 - admission: AdmissionController (the §4.3 five-check pipeline)
 - virtual_node: VirtualNodeProvider (scheduler-as-admission, §4.1)
+- vectorized: batched admission replay (``admit_quantum``, a
+  hand-written CUDA kernel on the card) + control-plane bridges
 - ledger / state: token buckets and the Redis-contract state store
 """
 from repro_torch.core.admission import AdmissionController
-from repro_torch.core.control_plane import ControlState, control_tick
+from repro_torch.core.control_plane import (
+    ControlState,
+    OracleRow,
+    control_tick,
+    control_tick_pools,
+    reference_tick,
+)
 from repro_torch.core.ledger import Charge, Ledger, RowBucket, TokenBucket
 from repro_torch.core.request_table import (
     InFlight,
@@ -28,6 +37,7 @@ from repro_torch.core.resident import ResidentStatus, ResidentStore
 from repro_torch.core.pool import (
     EntitlementMigration,
     SettleBatch,
+    TickInputs,
     TickRecord,
     TokenPool,
     waterfill,
@@ -43,6 +53,13 @@ from repro_torch.core.priority import (
     service_gap,
 )
 from repro_torch.core.state import CASConflict, StateStore
+from repro_torch.core.vectorized import (
+    QuantumSnapshot,
+    admit_quantum,
+    arrays_from_pool,
+    quantum_snapshot,
+    running_min_live,
+)
 from repro_torch.core.types import (
     AdmissionDecision,
     AdmissionRequest,
@@ -70,13 +87,15 @@ __all__ = [
     "CASConflict", "Charge", "ControlState", "DenyReason",
     "EntitlementMigration", "EntitlementSpec", "EntitlementState",
     "EntitlementStatus", "InFlight", "InFlightMap", "InFlightRow",
-    "LeasePod", "Ledger", "PoolManager", "PoolSpec",
-    "PriorityCoefficients", "QoS", "RequestTable", "ResidentStatus",
-    "ResidentStore", "Resources", "RouteEntry", "RowBucket",
-    "ScalingBounds", "ServiceClass", "SettleBatch", "StateStore",
-    "TickRecord", "TokenBucket", "TokenPool", "VirtualNode",
-    "VirtualNodeProvider", "as_manager", "burst_overconsumption",
-    "burst_update", "control_tick", "debt_update", "kv_bytes_per_token",
-    "max_concurrency", "pool_average_slo", "priority_breakdown",
-    "priority_weight", "service_gap", "waterfill",
+    "LeasePod", "Ledger", "OracleRow", "PoolManager", "PoolSpec",
+    "PriorityCoefficients", "QoS", "QuantumSnapshot", "RequestTable",
+    "ResidentStatus", "ResidentStore", "Resources", "RouteEntry",
+    "RowBucket", "ScalingBounds", "ServiceClass", "SettleBatch",
+    "StateStore", "TickInputs", "TickRecord", "TokenBucket", "TokenPool",
+    "VirtualNode", "VirtualNodeProvider", "admit_quantum",
+    "arrays_from_pool", "as_manager", "burst_overconsumption",
+    "burst_update", "control_tick", "control_tick_pools", "debt_update",
+    "kv_bytes_per_token", "max_concurrency", "pool_average_slo",
+    "priority_breakdown", "priority_weight", "quantum_snapshot",
+    "reference_tick", "running_min_live", "service_gap", "waterfill",
 ]

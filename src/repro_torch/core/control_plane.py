@@ -4,7 +4,9 @@
 Every accounting tick runs here: ``TokenPool.tick`` hands its resident
 :class:`ControlState` (on the pool's device) to :func:`control_tick`,
 and scatters the results back into the ledger and per-entitlement
-status.  Entitlements are rows; service classes are small int codes.
+status.  ``PoolManager`` stacks P pools along a leading pool axis and
+ticks them in one :func:`control_tick_pools` call.  Entitlements are
+rows; service classes are small int codes.
 
 Counterpart of ``repro/core/control_plane.py``.  On the CPU the results
 are bit-for-bit those of the JAX ``control_tick``.  XLA contracts six
@@ -19,11 +21,18 @@ Pool-level aggregates reduce with the same positional binary tree as
 the reference (:func:`tree_sum`), never with ``torch.sum``'s
 backend-chosen order.  The water-fill loop is a Python loop with the
 reference ``while_loop``'s condition; on a CUDA tensor each round reads
-its condition back to the host.
+its condition back to the host.  With a leading pool axis it runs while
+ANY pool is still active and freezes the pools that are done, as the
+reference's ``vmap`` of a ``while_loop`` does.
+
+The module also keeps :func:`reference_tick`, the naive pure-Python
+replay of the same math on the scalar oracle functions — the TEST
+ORACLE; production code never calls it.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -50,7 +59,9 @@ class ControlState:
 
     The first six fields mirror the EntitlementSpec (static between
     membership changes); ``burst``/``debt`` are the Eq. 2–3 EWMAs that
-    the tick evolves.  Every field is a 1-D tensor on one device.
+    the tick evolves.  Every field is a tensor on one device: [N] for
+    one pool, [P, N] with a leading pool axis for
+    :func:`control_tick_pools`.
     """
 
     class_code: torch.Tensor     # int32 [N]
@@ -88,11 +99,17 @@ def fma(a, b, c) -> torch.Tensor:
     return (a * b + c).float()
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """A per-pool scalar ([] or [P]) broadcast against its pool's rows."""
+    return x.unsqueeze(-1)
+
+
 def priority_rows(state: ControlState, pool_avg_slo: torch.Tensor,
                   coeff: PriorityCoefficients) -> torch.Tensor:
     """Eq. (1), row-parallel."""
     w_class = _lookup(CLASS_W, state.class_code)
-    slo_f = 1.0 / fma(coeff.alpha_slo, state.slo_ms / pool_avg_slo, 1.0)
+    slo_f = 1.0 / fma(coeff.alpha_slo,
+                      state.slo_ms / _rows(pool_avg_slo), 1.0)
     burst_f = 1.0 / fma(coeff.alpha_burst, state.burst.clamp_min(0.0), 1.0)
     debt_f = fma(coeff.alpha_debt, state.debt, 1.0).clamp_min(1e-3)
     return w_class * slo_f * burst_f * debt_f
@@ -162,36 +179,48 @@ def waterfill_rows(capacity: torch.Tensor, want: torch.Tensor,
     """Priority-weighted progressive water-filling (tensor mirror of
     ``core.pool.waterfill``): the reference ``while_loop`` as a Python
     loop with the same ``cond``; converges in ≤ #distinct-caps rounds,
-    bounded by ``max_rounds``."""
+    bounded by ``max_rounds``.  ``capacity`` is a per-pool scalar ([] or
+    [P]); with a pool axis every pool keeps its own loop state, the loop
+    runs while any pool's ``cond`` holds, and a pool whose ``cond``
+    failed keeps its state unchanged (``vmap`` of a ``while_loop``)."""
     want = want.clamp_min(0.0)
     active = want > 1e-12
     alloc = torch.zeros_like(want)
     remaining = capacity.clamp_min(0.0)
-    i = 0
+    i = torch.zeros_like(remaining, dtype=torch.int32)
     has_active = tree_any(active)
-    while bool((remaining > 1e-9) & has_active) and i < max_rounds:
+    while True:
+        run = (remaining > 1e-9) & has_active & (i < max_rounds)
+        if not bool(run.any()):
+            return alloc
         w = torch.where(active, weight, 0.0)
         total_w = tree_sum(w)
         n_active = tree_count(active)
         total_w_safe = torch.where(total_w > 0.0, total_w, 1.0)
         share = torch.where(
-            total_w > 0.0,
-            remaining * (w / total_w_safe),
-            torch.where(active, remaining / n_active.clamp_min(1), 0.0))
+            _rows(total_w > 0.0),
+            _rows(remaining) * (w / _rows(total_w_safe)),
+            torch.where(active, _rows(remaining / n_active.clamp_min(1)),
+                        0.0))
         room = want - alloc
         take = torch.where(active, torch.minimum(room, share), 0.0)
-        alloc = alloc + take
-        remaining = remaining - tree_sum(take)
+        new_alloc = alloc + take
+        new_remaining = remaining - tree_sum(take)
         # done when the share covered the remaining room — compare take
         # to room with a magnitude-scaled epsilon (f32-safe)
         newly_done = active & (take >= fma(-1e-6, want.clamp_min(1.0),
                                            room))
         # scalar loop breaks when a round fills nobody
-        progress = bool(tree_any(newly_done))
-        active = active & ~newly_done
-        i = i + 1 if progress else max_rounds
-        has_active = tree_any(active)
-    return alloc
+        progress = tree_any(newly_done)
+        new_active = active & ~newly_done
+        new_i = torch.where(progress, i + 1, max_rounds)
+        new_has_active = tree_any(new_active)
+        # a pool whose cond failed keeps its state (vmap of while_loop)
+        alloc = torch.where(_rows(run), new_alloc, alloc)
+        active = torch.where(_rows(run), new_active, active)
+        remaining = torch.where(run, new_remaining, remaining)
+        i = torch.where(run, new_i, i)
+        has_active = torch.where(run, new_has_active, has_active)
 
 
 def allocate_rows(capacity: torch.Tensor, state: ControlState,
@@ -210,7 +239,7 @@ def allocate_rows(capacity: torch.Tensor, state: ControlState,
     emergency = total_active_p > capacity
     scale = torch.where(emergency,
                         capacity / total_active_p.clamp_min(1e-30), 1.0)
-    alloc_p = base_p * scale
+    alloc_p = base_p * _rows(scale)
     remaining = torch.where(
         emergency, 0.0, (capacity - total_active_p).clamp_min(0.0))
 
@@ -279,6 +308,25 @@ def control_tick(state: ControlState, capacity_tps: torch.Tensor,
                       used_conc, demand_tps, avg_slo_ms, coeff)
 
 
+@torch.no_grad()
+def control_tick_pools(states: ControlState, capacity_tps: torch.Tensor,
+                       measured_tps: torch.Tensor, used_kv: torch.Tensor,
+                       used_conc: torch.Tensor, demand_tps: torch.Tensor,
+                       avg_slo_ms: torch.Tensor,
+                       coeff: PriorityCoefficients = PriorityCoefficients(),
+                       ) -> tuple[ControlState, torch.Tensor, torch.Tensor]:
+    """Batched tick across P pools: every array carries a leading pool
+    axis ([P, N] rows, [P] scalars) and the whole fleet ticks in one
+    call.  The reference ``vmap``s the tick body; here the pool axis is
+    written out (per-pool scalars broadcast over their rows, tree
+    reductions run per pool, and the water-fill freezes pools that are
+    done).  Pools with fewer rows are padded with unbound rows (see
+    :func:`pad_state`) — padding cannot affect live rows because every
+    mask is ANDed with ``bound``."""
+    return _tick_impl(states, capacity_tps, measured_tps, used_kv,
+                      used_conc, demand_tps, avg_slo_ms, coeff)
+
+
 # -- padding helpers ------------------------------------------------------------
 
 def bucket_width(n_rows: int) -> int:
@@ -304,8 +352,167 @@ def quantum_width(n_requests: int) -> int:
 
 
 def pad_rows(x: torch.Tensor, n_rows: int, fill=0) -> torch.Tensor:
-    """Right-pad a row vector to ``n_rows``."""
+    """Right-pad a row vector to ``n_rows`` (the single source of the
+    padding idiom — ``pad_state``, ``PoolManager.tick`` and the
+    gateway's quantum batches all bucket through this)."""
     n = x.shape[0]
     if n == n_rows:
         return x
     return torch.cat([x, x.new_full((n_rows - n,), fill)])
+
+
+def pad_state(state: ControlState, n_rows: int) -> ControlState:
+    """Right-pad a state to ``n_rows`` with inert rows: unbound, zero
+    baselines, class 0.  Unbound rows are excluded from every allocation
+    mask and their EWMAs see zero inputs, so they stay identically zero."""
+    if state.n_rows == n_rows:
+        return state
+    return ControlState(
+        class_code=pad_rows(state.class_code, n_rows),
+        bound=pad_rows(state.bound, n_rows, False),
+        baseline_tps=pad_rows(state.baseline_tps, n_rows),
+        baseline_kv=pad_rows(state.baseline_kv, n_rows),
+        baseline_conc=pad_rows(state.baseline_conc, n_rows),
+        slo_ms=pad_rows(state.slo_ms, n_rows, 1.0),
+        burst=pad_rows(state.burst, n_rows),
+        debt=pad_rows(state.debt, n_rows),
+    )
+
+
+def stack_states(states: Sequence[ControlState],
+                 width: int = 0) -> ControlState:
+    """Stack per-pool states (padded to a common width — at least the
+    widest state; pass ``width`` to bucket it) along a new leading
+    pool axis."""
+    width = max(width, max(s.n_rows for s in states))
+    padded = [pad_state(s, width) for s in states]
+    return ControlState(**{
+        f.name: torch.stack([getattr(s, f.name) for s in padded])
+        for f in dataclasses.fields(ControlState)})
+
+
+# -- the scalar test oracle ---------------------------------------------------
+
+@dataclasses.dataclass
+class OracleRow:
+    """One entitlement row for :func:`reference_tick` — plain floats."""
+
+    service_class: ServiceClass
+    bound: bool
+    baseline_tps: float
+    baseline_kv: float
+    baseline_conc: float
+    slo_ms: float
+    burst: float
+    debt: float
+    measured_tps: float = 0.0
+    used_kv: float = 0.0
+    used_conc: float = 0.0
+    demand_tps: float = 0.0
+
+
+def reference_tick(rows: list[OracleRow], capacity_tps: float,
+                   avg_slo_ms: float,
+                   coeff: PriorityCoefficients = PriorityCoefficients(),
+                   ) -> tuple[list[OracleRow], list[float], list[float]]:
+    """Pure-Python per-entitlement replay of the tick — the TEST ORACLE.
+
+    A dict loop over ``core.priority`` Eq. 1–3 plus ``core.pool.waterfill``.
+    Returns (updated rows, allocations, priority weights) in row order.
+    O(N) Python; never call it from the serving path.
+    """
+    from repro_torch.core import priority as prio
+    from repro_torch.core.pool import waterfill
+    from repro_torch.core.types import (
+        BURST_CLASSES,
+        DEBT_CLASSES,
+        PROTECTED_CLASSES,
+        Resources,
+    )
+
+    rows = [dataclasses.replace(r) for r in rows]
+    idx = list(range(len(rows)))
+
+    # burst EWMA (Eq. 3) then priority (Eq. 1)
+    weights: list[float] = []
+    for r in rows:
+        delta = prio.burst_overconsumption(
+            Resources(r.measured_tps, r.used_kv, r.used_conc),
+            Resources(r.baseline_tps, r.baseline_kv, r.baseline_conc))
+        r.burst = prio.burst_update(r.burst, delta, coeff.gamma_burst)
+        weights.append(prio.priority_weight(
+            r.service_class, r.slo_ms, max(avg_slo_ms, 1e-9),
+            r.burst, r.debt, coeff))
+
+    # allocation: protected reserved → elastic baselines → backfill
+    alloc = [0.0] * len(rows)
+    live = [i for i in idx if rows[i].bound]
+    protected = [i for i in live
+                 if rows[i].service_class in PROTECTED_CLASSES]
+    base_p = {i: rows[i].baseline_tps for i in protected}
+    active_p = {i: min(base_p[i], rows[i].demand_tps) for i in protected}
+    total_active_p = sum(active_p.values())
+    if total_active_p > capacity_tps and total_active_p > 0:
+        scale = capacity_tps / total_active_p
+        for i in protected:
+            alloc[i] = base_p[i] * scale
+        remaining = 0.0
+    else:
+        for i in protected:
+            alloc[i] = base_p[i]
+        remaining = max(0.0, capacity_tps - total_active_p)
+
+        elastic = [i for i in live
+                   if rows[i].service_class is ServiceClass.ELASTIC]
+        want_e = {i: min(rows[i].baseline_tps, rows[i].demand_tps)
+                  for i in elastic}
+        fill = waterfill(remaining, want_e, {i: weights[i] for i in elastic})
+        for i in elastic:
+            alloc[i] = fill[i]
+        remaining = max(0.0, remaining - sum(fill.values()))
+
+        burst_ok = [i for i in live
+                    if rows[i].service_class in BURST_CLASSES]
+        want_b = {}
+        for i in burst_ok:
+            used = (active_p[i] if i in active_p
+                    else min(alloc[i], rows[i].demand_tps))
+            want_b[i] = max(0.0, rows[i].demand_tps - used)
+        fill = waterfill(remaining, want_b, {i: weights[i] for i in burst_ok})
+        for i in burst_ok:
+            alloc[i] += fill[i]
+
+    # debt EWMA (Eq. 2) for debt-bearing classes
+    for i, r in enumerate(rows):
+        if r.service_class not in DEBT_CLASSES:
+            continue
+        demand, base = r.demand_tps, r.baseline_tps
+        if demand <= 1e-9 or base <= 0.0:
+            gap = 0.0
+        else:
+            served = max(r.measured_tps, min(alloc[i], demand))
+            entitled_now = min(base, max(demand, served))
+            gap = (entitled_now - served) / base
+        gap = min(coeff.gap_clip, max(-coeff.gap_clip, gap))
+        r.debt = min(coeff.debt_max, max(
+            coeff.debt_min, prio.debt_update(r.debt, gap, coeff.gamma_debt)))
+    return rows, alloc, weights
+
+
+def state_from_rows(rows: Sequence[OracleRow],
+                    device="cuda") -> ControlState:
+    """Build a ControlState on ``device`` from oracle rows (tests)."""
+    def col(values, dtype):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+    return ControlState(
+        class_code=col([CLASS_CODES[r.service_class] for r in rows],
+                       torch.int32),
+        bound=col([r.bound for r in rows], torch.bool),
+        baseline_tps=col([r.baseline_tps for r in rows], torch.float32),
+        baseline_kv=col([r.baseline_kv for r in rows], torch.float32),
+        baseline_conc=col([r.baseline_conc for r in rows], torch.float32),
+        slo_ms=col([r.slo_ms for r in rows], torch.float32),
+        burst=col([r.burst for r in rows], torch.float32),
+        debt=col([r.debt for r in rows], torch.float32),
+    )

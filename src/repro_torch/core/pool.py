@@ -66,8 +66,8 @@ from repro_torch.core.types import (
 from repro_torch.core.virtual_node import LeasePod, VirtualNodeProvider
 
 __all__ = [  # noqa: F822 — InFlight re-exported from request_table
-    "EntitlementMigration", "InFlight", "SettleBatch", "TickRecord",
-    "TokenPool", "waterfill",
+    "EntitlementMigration", "InFlight", "SettleBatch", "TickInputs",
+    "TickRecord", "TokenPool", "waterfill",
 ]
 
 #: class codes (DED/GUAR/ELASTIC) whose baseline counts toward the
@@ -98,6 +98,23 @@ class SettleBatch:
     #: MATERIALIZED records of requests admitted via a spill leg
     #: (``spill_from`` set) — what cross-pool debt transfer consumes
     spills: list
+
+
+@dataclasses.dataclass
+class TickInputs:
+    """Gathered per-tick state, ready for ``control_tick``.  Produced by
+    ``TokenPool.begin_tick`` (live rows, compacted in slot order, on the
+    pool's device); ``PoolManager`` batches pools on the full resident
+    arrays instead."""
+
+    names: list[str]
+    state: ControlState
+    capacity_tps: float
+    measured_tps: torch.Tensor
+    used_kv: torch.Tensor
+    used_conc: torch.Tensor
+    demand_tps: torch.Tensor
+    avg_slo_ms: float
 
 
 @dataclasses.dataclass
@@ -1010,6 +1027,8 @@ class TokenPool:
     # ``control_tick`` over the FULL resident arrays (free slots are
     # inert unbound rows; the width is the pow2 store capacity), and
     # ``_absorb_tick`` adopts the tick's output arrays as the new truth.
+    # ``begin_tick``/``apply_tick`` survive as the compact gather/scatter
+    # halves for tests and callers that drive the tick themselves.
 
     @hot_path
     def _measure(self, now: float) -> float:
@@ -1050,6 +1069,66 @@ class TokenPool:
                 torch.from_numpy(c["kv_in_use"].astype(np.float32)).to(dev),
                 torch.from_numpy(c["resident"].astype(np.float32)).to(dev),
                 torch.from_numpy(c["demand_tps"].astype(np.float32)).to(dev))
+
+    def begin_tick(self, now: float) -> TickInputs:
+        """Measurement + compact gather: live rows only, in slot order
+        (row i of every array ↔ ``names[i]``), on the pool's device.
+        Kept for tests and callers that run the tick themselves; the
+        resident ``tick`` path skips the compaction entirely."""
+        self._measure(now)
+        idx = self.store.live_slots()
+        c = self.store.col
+        dev = self.store.device
+
+        def rows(k, dtype=None):
+            x = c[k][idx]
+            return torch.from_numpy(x if dtype is None
+                                    else x.astype(dtype)).to(dev)
+
+        state = ControlState(**{f.name: rows(f.name)
+                                for f in dataclasses.fields(ControlState)})
+        return TickInputs(
+            names=list(self.store.live_names()),
+            state=state,
+            capacity_tps=self.capacity().tokens_per_second,
+            measured_tps=rows("measured_tps", np.float32),
+            used_kv=rows("kv_in_use", np.float32),
+            used_conc=rows("resident", np.float32),
+            demand_tps=rows("demand_tps", np.float32),
+            avg_slo_ms=self.pool_avg_slo(),
+        )
+
+    def apply_tick(self, now: float, names: list[str],
+                   new_burst: np.ndarray, new_debt: np.ndarray,
+                   alloc: np.ndarray, weights: np.ndarray) -> TickRecord:
+        """Scatter compact tick outputs back into the resident columns
+        (steps 5–6) and append the observability record.  Row i of
+        every array belongs to ``names[i]``."""
+        slot_of = self.store.slot_of
+        slots = np.fromiter((slot_of[n] for n in names),
+                            np.int64, count=len(names))
+        c = self.store.col
+        alloc64 = np.asarray(alloc, np.float64)
+        c["burst"][slots] = np.asarray(new_burst, np.float32)
+        c["debt"][slots] = np.asarray(new_debt, np.float32)
+        c["eff_tps"][slots] = alloc64
+        self.store.mark_dirty()
+        mask = np.zeros(self.store.capacity, bool)
+        mask[slots] = True
+        rates = np.zeros(self.store.capacity, np.float64)
+        rates[slots] = alloc64
+        self.ledger.set_rate_rows(mask, rates, now)
+        rec = TickRecord.from_arrays(
+            now, self.capacity().tokens_per_second, list(names),
+            allocations=alloc64,
+            priorities=np.asarray(weights, np.float64),
+            debts=c["debt"][slots].astype(np.float64),
+            bursts=c["burst"][slots].astype(np.float64),
+            in_flight=c["in_flight"][slots].copy(),
+            demand_tps=c["demand_tps"][slots].copy(),
+        )
+        self.history.append(rec)
+        return rec
 
     @hot_path
     def _absorb_tick(self, now: float, new_state: ControlState,

@@ -1,19 +1,37 @@
-"""PoolManager — pool membership, routing and completion attribution.
+"""PoolManager — the multi-pool control plane.
 
-Counterpart of ``repro/core/pool_manager.py``, cut to what the scalar
-gateway path uses: membership, ``route_order`` (static client
-preference or budget/latency-aware ``headroom`` ranking over a route's
-(pool, entitlement) legs), and completion / eviction attribution with
-the per-request cross-pool debt transfer.  The batched fleet ``tick``,
-``on_complete_batch``, migration and ``plan_quantum`` wait for the
-quantum and planner slices (ROADMAP queue A).
+Counterpart of ``repro/core/pool_manager.py``.  A platform runs several
+TokenPools and an API key maps to an ORDERED list of (pool,
+entitlement) legs with spill-over.  This module provides:
+
+1. **Batched accounting** — ``PoolManager.tick`` stacks every pool's
+   resident rows along a pool axis (padding narrower pools with inert
+   unbound rows) and runs ``control_plane.control_tick_pools`` — one
+   call for the whole fleet per group of pools that share priority
+   coefficients and a device.
+2. **Routing** — ``route_order`` ranks the legs of a route: the static
+   client preference by default, or budget/latency-aware
+   (``spill_policy="headroom"``).  Pools with zero live replicas are
+   unavailable and always skipped.
+3. **Completion attribution** — per request and batched, with the
+   cross-pool debt transfer for requests served off a spill leg.
+
+Entitlement migration and fleet planning (``migrate_entitlement``,
+``plan_quantum``) wait for the planner slice (ROADMAP queue A) and
+raise.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Iterable, Optional, Union
 
-from repro_torch.core.pool import InFlight, TokenPool
+import numpy as np
+import torch
+
+from repro_torch.core import control_plane
+from repro_torch.core.control_plane import ControlState
+from repro_torch.core.markers import hot_path
+from repro_torch.core.pool import InFlight, TickRecord, TokenPool
 from repro_torch.core.types import EntitlementSpec, PoolSpec
 from repro_torch.core.virtual_node import VirtualNodeProvider
 
@@ -31,10 +49,22 @@ SPILL_POLICIES = ("static", "headroom")
 
 
 class PoolManager:
-    """Holds the fleet of TokenPools and attributes their requests."""
+    """Holds the fleet of TokenPools and batches their accounting."""
 
     def __init__(self, pools: Iterable[TokenPool] = ()) -> None:
         self.pools: dict[str, TokenPool] = {}
+        #: per-group cache of the stacked [P, W] device state fed to
+        #: ``control_tick_pools`` — the tick's own output is next tick's
+        #: input, so steady-state fleet ticks re-upload NOTHING
+        #: (validity: each pool's ``device_state()`` must still be the
+        #: state slice the last tick adopted; growth/``mark_dirty``/churn
+        #: swap that object out and the changed pool's row is re-spliced
+        #: device-side)
+        self._stack_cache: dict[object, dict] = {}
+        #: observability: whole-group stack reuses vs pool rows
+        #: re-stacked (steady-state ticking re-stacks nothing)
+        self.stack_reuses = 0
+        self.stack_restacks = 0
         for p in pools:
             self.adopt(p)
 
@@ -234,6 +264,44 @@ class PoolManager:
         src_st.debt = src_st.debt - delta
         return delta
 
+    @hot_path
+    def on_complete_batch(self, completions: list, now: float) -> list:
+        """Batched :meth:`on_complete` — ``completions`` is a list of
+        ``(request_id, actual_output_tokens)`` pairs; each admitting
+        pool settles its share in ONE vectorized ``settle_rows`` call.
+        Returns a list aligned with the input:
+        ``(pool name, entitlement, settled_tokens)`` per known request,
+        ``None`` per unknown one.  Spill-debt transfers run after each
+        pool's settle, in batch order — transfers touch only debt,
+        which no settle reads, so per-pool results match the scalar
+        interleaving exactly."""
+        results: list = [None] * len(completions)
+        if not completions:
+            return results
+        if len(self.pools) == 1:
+            pool = next(iter(self.pools.values()))
+            groups = {pool.spec.name: list(range(len(completions)))}
+        else:
+            groups = {}
+            for i, (rid, _) in enumerate(completions):
+                pool = self.find_pool_of(rid)
+                if pool is not None:
+                    groups.setdefault(pool.spec.name, []).append(i)
+        for name, idxs in groups.items():
+            pool = self.pools[name]
+            batch = pool.on_complete_batch(
+                [completions[i][0] for i in idxs],
+                [completions[i][1] for i in idxs], now)
+            known = batch.known
+            ents = batch.entitlements
+            settled = batch.settled_tokens
+            for k, i in enumerate(idxs):
+                if known[k]:
+                    results[i] = (name, ents[k], float(settled[k]))
+            for rec in batch.spills:
+                self.transfer_spill_debt(rec, name, now)
+        return results
+
     def on_evict(self, request_id: str, now: float
                  ) -> Optional[tuple[str, InFlight]]:
         pool = self.find_pool_of(request_id)
@@ -241,6 +309,121 @@ class PoolManager:
             return None
         rec = pool.on_evict(request_id, now)
         return (pool.spec.name, rec) if rec is not None else None
+
+    # -- the batched accounting tick --------------------------------------------
+    @hot_path
+    def tick(self, now: float) -> dict[str, TickRecord]:
+        """Tick EVERY pool, one ``control_tick_pools`` call per group of
+        pools that share priority coefficients (the reference groups by
+        its static jit argument) and a device.
+
+        The stacked inputs are the pools' RESIDENT arrays: each pool's
+        vectorized window fold runs in place, its device-mirrored state
+        is padded to the group's (pow2) width — free slots and padding
+        are both inert unbound rows — and the outputs are absorbed back
+        into each store with vectorized row ops.  A group of one pool
+        runs that pool's own ``tick``.  No per-entitlement Python
+        anywhere on this path."""
+        groups: dict[object, list[TokenPool]] = {}
+        for pool in self.pools.values():
+            groups.setdefault((pool.spec.coefficients, pool.store.device),
+                              []).append(pool)
+
+        records: dict[str, TickRecord] = {}
+        for (coeff, dev), group in groups.items():
+            if len(group) == 1:
+                pool = group[0]
+                records[pool.spec.name] = pool.tick(now)
+                continue
+            for p in group:
+                p._measure(now)
+            # store capacities are powers of two; the group width is the
+            # widest store
+            width = control_plane.bucket_width(
+                max(p.store.capacity for p in group))
+
+            def padded(k):
+                out = np.zeros((len(group), width), np.float32)
+                for i, p in enumerate(group):
+                    out[i, :p.store.capacity] = p.store.col[k]
+                return torch.from_numpy(out).to(dev)
+
+            members = tuple(p.spec.name for p in group)
+            key = (coeff, dev)
+            cache = self._stack_cache.get(key)
+            if (cache is not None and cache["members"] == members
+                    and cache["width"] == width):
+                states = cache["stacked"]
+                stale = [k for k, p in enumerate(group)
+                         if p.store.device_state()
+                         is not cache["sources"][k]]
+                if stale:
+                    # splice only the changed pools' rows back in
+                    # (device-side copies: the cached stack is never
+                    # written, since the pools' states are views of it)
+                    fields = {f.name: getattr(states, f.name).clone()
+                              for f in dataclasses.fields(ControlState)}
+                    for k in stale:
+                        row = control_plane.pad_state(
+                            group[k].store.device_state(), width)
+                        for name, t in fields.items():
+                            t[k] = getattr(row, name)
+                    states = ControlState(**fields)
+                    self.stack_restacks += len(stale)
+                else:
+                    self.stack_reuses += 1
+            else:
+                states = control_plane.stack_states(
+                    [p.store.device_state() for p in group], width=width)
+                self.stack_restacks += len(group)
+            new_state, alloc, weights = control_plane.control_tick_pools(
+                states,
+                torch.tensor([p.capacity().tokens_per_second
+                              for p in group], dtype=torch.float32,
+                             device=dev),
+                padded("measured_tps"),
+                padded("kv_in_use"),
+                padded("resident"),
+                padded("demand_tps"),
+                torch.tensor([p.pool_avg_slo() for p in group],
+                             dtype=torch.float32, device=dev),
+                coeff=coeff)
+            alloc = alloc.cpu().numpy()
+            weights = weights.cpu().numpy()
+            sources: list[ControlState] = []
+            for k, pool in enumerate(group):
+                w = pool.store.capacity
+                sliced = ControlState(**{
+                    f.name: getattr(new_state, f.name)[k, :w]
+                    for f in dataclasses.fields(ControlState)})
+                records[pool.spec.name] = pool._absorb_tick(
+                    now, sliced, alloc[k, :w], weights[k, :w])
+                sources.append(pool.store.device_state())
+            # the [P, W] output IS next tick's input stack: live rows
+            # carry the adopted per-pool state bit for bit, and padding
+            # rows are inert under the tick (zero baselines ⇒ zero burst
+            # delta, unbound ⇒ zero debt)
+            self._stack_cache[key] = {
+                "members": members, "width": width,
+                "stacked": new_state, "sources": sources}
+        return records
+
+    # -- fleet capacity planning -------------------------------------------------
+    def migrate_entitlement(self, name: str, src: str, dst: str,
+                            now: float = 0.0):
+        """Move ``name`` from pool ``src`` to pool ``dst`` with its
+        bucket, debt/burst and in-flight records — with the fleet
+        planner, not yet ported."""
+        raise NotImplementedError(
+            "PoolManager.migrate_entitlement — the fleet planner is "
+            "ROADMAP queue A, 'the planner'")
+
+    def plan_quantum(self, now: float, records=None):
+        """One closed-loop fleet planning round — not yet ported."""
+        raise NotImplementedError(
+            "PoolManager.plan_quantum — the fleet planner is ROADMAP "
+            "queue A, 'the planner'")
+
 
 PoolOrManager = Union[TokenPool, PoolManager]
 

@@ -1,3 +1,3 @@
-from repro_torch.gateway.gateway import Gateway, GatewayResponse
+from repro_torch.gateway.gateway import Gateway, GatewayResponse, QuantumRequest
 
-__all__ = ["Gateway", "GatewayResponse"]
+__all__ = ["Gateway", "GatewayResponse", "QuantumRequest"]

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("flash_attention", "paged_attention")
+KERNEL_SOURCES = ("flash_attention", "paged_attention", "admit_quantum")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
