@@ -20,16 +20,20 @@ each reported on its own line:
    split of -1 pages;
 3. ``control`` — the control tick on the card against the same tick on
    the CPU for a seeded 4096-row state;
-4. ``quantum`` — the batched admission path: the ``admit_quantum`` kernel
-   against its plain version (decisions identical, not within a
-   tolerance) on a seeded quantum of 65,536 requests over 4,096
-   entitlements that reaches every reason code, and on edge cases; the
+4. ``quantum`` — the batched admission path: the ``admit_quantum``
+   kernel's default route and the first port's serial kernel against
+   the plain version (decisions identical, not within a tolerance) on
+   four seeded quanta of 65,536 requests over 4,096 entitlements (one
+   that reaches every reason code, a pool that fills, falling weights
+   that hand the rounds over to the serial walk, a hot row), each with
+   its route, rounds, SM cycles by phase and both kernels' times; every
+   route on edge cases; both routes timed over quantum lengths; the
    batched tick of 8 pools x 100,000 rows on the card against the CPU;
    one 10,000-request ``Gateway.handle_quantum`` over 512 entitlements
    on a pool on the card against one on the CPU; and the paper's
    Experiments 1 and 2 and the multi-pool routing scenario (quantum and
    scalar admission) through the port's simulators on the card against
-   the CPU, with the kernel's launches counted on that path;
+   the CPU, with the kernel's launches counted by route on that path;
 5. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
    full-depth Qwen3-8B (bf16, random init from ``--seed``) serving a
    guaranteed and a spot tenant; every flash launch on this path must
@@ -79,11 +83,12 @@ ADMIT_SRC = "src/repro_torch/kernels/csrc/admit_quantum.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:85"
 PAGED_TPU = "src/repro/kernels/paged_attention/paged_attention.py:85"
 #: not a Pallas kernel: the jitted lax.fori_loop of the JAX package
-ADMIT_TPU = "src/repro/core/vectorized.py:68"
+ADMIT_TPU = "src/repro/core/vectorized.py:70"
 #: the port's kernel functions, as the profiler names them
 PORT_KERNELS = ("flash_prefill_wgmma_kernel", "flash_prefill_kernel",
                 "paged_split_kernel", "paged_merge_kernel",
-                "paged_decode_kernel", "admit_quantum_kernel")
+                "paged_decode_kernel", "admit_rounds_kernel",
+                "admit_walk_kernel")
 
 
 class PhaseFailed(RuntimeError):
@@ -591,6 +596,34 @@ def admit_edge_cases(np, torch, seed: int):
            *admit_case(np, torch, r, 32768, 20000))
 
 
+def admit_draws(np, torch, seed: int, n: int, m: int):
+    """(label, args, scalars) of the four draws the kernel is checked
+    and timed on: the kernel draw (contended from the start); a pool
+    that fills during the quantum (none in flight, the running minimum
+    unset, slack 0.1); shielded rows admitted in blocks of strictly
+    falling weight under contention, so every block's first admit
+    lowers the running minimum (the rounds hand over to the serial
+    walk); and one row holding half of the requests."""
+    r = np.random.RandomState
+    yield ("draw", *admit_case(np, torch, r(seed), n, m))
+    yield ("filling pool, slack 0.1", *admit_case(
+        np, torch, r(seed), n, m, pool_in_flight=0, pool_conc_cap=4096.0,
+        running_min=float("inf"), slack_factor=float(np.float32(0.9))))
+    args, scal = admit_case(
+        np, torch, r(seed + 1), n, m, class_code=np.full(n, 1, np.int32),
+        bound=np.ones(n, bool), baseline_conc=np.zeros(n, np.float32),
+        baseline_kv=np.zeros(n, np.float32),
+        bucket_level=np.full(n, 1e9, np.float32), running_min=float("inf"))
+    by_weight = np.argsort(-args[4].numpy(), kind="stable")
+    args = (*args[:8], torch.from_numpy(
+        np.repeat(by_weight, m // n).astype(np.int32)), *args[9:])
+    yield ("falling weights", args, scal)
+    args, scal = admit_case(np, torch, r(seed + 2), n, m)
+    hot = np.random.RandomState(seed + 3).random_sample(m) < 0.5
+    args[8][torch.from_numpy(hot)] = 7
+    yield ("hot row (50 %)", args, scal)
+
+
 def phase_quantum(torch, np, seed: int, card: str) -> dict:
     """The batched admission path on the card (see the module
     docstring).  Returns the ``admit_quantum`` kernel's report entry."""
@@ -604,6 +637,11 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
 
     def on(dev, args):
         return tuple(a.to(dev) for a in args)
+
+    def reset_counts():
+        admit_scan.launches = 0
+        for k in admit_scan.route_launches:
+            admit_scan.route_launches[k] = 0
 
     def same(out_k, out_p) -> int:
         """Number of requests whose admit bit, reason or priority bits
@@ -625,29 +663,63 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
 
     aq_mod.reference_admit_scan = guarded
     try:
-        # 1. kernel against plain at the benchmark's size, then edges
+        # 1. the kernel's routes and the first port's serial kernel
+        # against the plain version on four draws at the benchmark's
+        # size, then on the edge cases, then timed
         n, m = 4096, 65536
-        args, scal = admit_case(np, torch, np.random.RandomState(seed), n, m)
-        out_p = plain(*args, **scal)
-        dev_args = on("cuda", args)
-        out_k = admit_scan(*dev_args, **scal)
-        torch.cuda.synchronize()
-        diff = same(out_k, out_p)
-        check(diff == 0, f"quantum: admit_quantum kernel and plain version "
-                         f"disagree on {diff} of {m} requests")
-        codes = np.bincount(out_p[1].numpy(), minlength=5).tolist()
-        check(all(codes), f"quantum: the draw missed a reason code: {codes}")
+        timer = Timer(torch)
+        draws, first = [], None
+        for label, args, scal in admit_draws(np, torch, seed, n, m):
+            out_p = plain(*args, **scal)
+            dev_args = on("cuda", args)
+            how = aq_mod.route(m)
+            out_k = admit_scan(*dev_args, **scal)
+            stats = admit_scan.last_stats.tolist()
+            out_s = admit_scan(*dev_args, **scal, kernel="serial")
+            torch.cuda.synchronize()
+            for name, out in ((how, out_k), ("serial", out_s)):
+                diff = same(out, out_p)
+                check(diff == 0, f"quantum: {label}: the {name} kernel and "
+                                 f"the plain version disagree on {diff} of "
+                                 f"{m} requests")
+            codes = np.bincount(out_p[1].numpy(), minlength=5).tolist()
+            if first is None:
+                check(all(codes), f"quantum: the draw missed a reason "
+                                  f"code: {codes}")
+                first = (args, scal, dev_args, codes)
+            k_ms = timer.ms(lambda: admit_scan(*dev_args, **scal))
+            s_ms = timer.ms(lambda: admit_scan(*dev_args, **scal,
+                                               kernel="serial"))
+            draws.append({"draw": label, "route": how, "rounds": stats[0],
+                          "fallback_at": stats[1], "ms": k_ms,
+                          "previous_ms": s_ms, "reasons": codes,
+                          "cycles": stats[2:]})
+            print(f"quantum draw: {label}, N={n} M={m}, reasons 0-4 "
+                  f"{codes}: {how} and serial kernels identical to the "
+                  f"plain version (admit bits, reasons, priority bits); "
+                  f"route {how}, rounds {stats[0]}, serial walk from "
+                  f"{stats[1]}, SM cycles from the rounds kernel's start "
+                  f"to the end of its grouping / its rounds {stats[2]} / "
+                  f"{stats[3]}, of the walk kernel {stats[4]} (first "
+                  f"launch); {k_ms:.5f} ms ({1e6 * k_ms / m:.2f} ns a "
+                  f"request), serial kernel {s_ms:.4f} ms "
+                  f"({1e6 * s_ms / m:.1f} ns a request); card {card}")
+        args, scal, dev_args, codes = first
         edges = []
         for label, e_args, e_scal in admit_edge_cases(np, torch, seed):
             e_p = plain(*e_args, **e_scal)
-            e_k = admit_scan(*on("cuda", e_args), **e_scal)
-            torch.cuda.synchronize()
-            d = same(e_k, e_p)
-            check(d == 0, f"quantum: edge case '{label}': kernel and plain "
-                          f"version disagree on {d} requests")
+            e_dev = on("cuda", e_args)
+            for kernel in ("rounds", "walk", "serial"):
+                e_k = admit_scan(*e_dev, **e_scal, kernel=kernel)
+                torch.cuda.synchronize()
+                d = same(e_k, e_p)
+                check(d == 0, f"quantum: edge case '{label}': the {kernel} "
+                              f"kernel and the plain version disagree on "
+                              f"{d} requests")
             edges.append(f"{label} {np.bincount(e_p[1].numpy(), minlength=5).tolist()}")
-        timer = Timer(torch)
-        kernel_ms = timer.ms(lambda: admit_scan(*dev_args, **scal))
+        print("quantum edges: rounds, walk and serial kernels identical to "
+              "the plain version (reasons 0-4): " + "; ".join(edges))
+        kernel_ms = draws[0]["ms"]
         t = time.perf_counter()
         plain(*args, **scal)
         plain_ms = 1e3 * (time.perf_counter() - t)
@@ -658,13 +730,39 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
         # ~24 operations a request (compares, selects, two adds, one
         # multiply, the gather's index arithmetic)
         t_ops = 24.0 * m / PEAK_FLOPS["float32"]
-        print(f"quantum kernel: admit_quantum N={n} M={m}, reasons "
-              f"0-4 {codes}: decisions identical to the plain version "
-              f"(admit bits, reasons, priority bits); edge cases identical "
-              f"(reasons 0-4): " + "; ".join(edges)
-              + f"; {kernel_ms:.4f} ms on the card "
-              f"({1e6 * kernel_ms / m:.1f} ns a request), plain version on "
-              f"the CPU {plain_ms:.1f} ms (host clock); card {card}")
+        # the routes against each other over quantum lengths (where the
+        # walk should hand over to the rounds), and the adversarial draw
+        # with the rounds unbounded (what the fallback saves)
+        sweep = []
+        for nn, mm in ((64, 32), (64, 256), (n, 256), (n, 1024), (n, 2048),
+                       (n, 4096), (n, 16384)):
+            s_args, s_scal = admit_case(np, torch,
+                                        np.random.RandomState(seed), nn, mm)
+            s_dev = on("cuda", s_args)
+            sweep.append(f"N={nn} M={mm} walk " + "{:.5f}".format(timer.ms(
+                lambda: admit_scan(*s_dev, **s_scal, kernel="walk")))
+                + " rounds " + "{:.5f}".format(timer.ms(
+                    lambda: admit_scan(*s_dev, **s_scal, kernel="rounds"))))
+        f_label, f_args, f_scal = next(
+            d for d in admit_draws(np, torch, seed, n, m)
+            if d[0].startswith("falling"))
+        f_dev = on("cuda", f_args)
+        kept = aq_mod.MAX_ROUNDS, aq_mod.MIN_COMMIT
+        aq_mod.MAX_ROUNDS, aq_mod.MIN_COMMIT = 1 << 30, 1
+        try:
+            out_u = admit_scan(*f_dev, **f_scal, kernel="rounds")
+            u_stats = admit_scan.last_stats.tolist()
+            check(same(out_u, plain(*f_args, **f_scal)) == 0,
+                  "quantum: unbounded rounds disagree with the plain version")
+            u_ms = timer.ms(lambda: admit_scan(*f_dev, **f_scal,
+                                               kernel="rounds"))
+        finally:
+            aq_mod.MAX_ROUNDS, aq_mod.MIN_COMMIT = kept
+        print(f"quantum routes: ms by quantum length (draw "
+              f"distribution): " + "; ".join(sweep) + f"; {f_label} with "
+              f"the rounds unbounded: {u_stats[0]} rounds, {u_ms:.4f} ms; "
+              f"plain version of the first draw on the CPU {plain_ms:.1f} "
+              f"ms (host clock); card {card}")
 
         # 2. the batched tick, 8 pools x 100,000 rows
         P, rows_n = 8, 100_000
@@ -727,7 +825,7 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
         # a warm-up quantum and a second one compared between the
         # devices, then two more timed on the card alone
         resp, best = {}, float("inf")
-        admit_scan.launches = 0
+        reset_counts()
         for dev in ("cuda", "cpu"):
             gw = gateway(dev)
             resp[dev] = []
@@ -745,6 +843,7 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
             if dev == "cuda":
                 gw_best, best = best, float("inf")
         gw_launches = admit_scan.launches
+        gw_routes = dict(admit_scan.route_launches)
         bad = [i for i, (a, b) in enumerate(zip(resp["cuda"], resp["cpu"]))
                if a != b]
         check(len(resp["cuda"]) == len(resp["cpu"]) and not bad,
@@ -753,15 +852,18 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
               f"{bad[:1]}")
         check(gw_launches == 4, f"quantum: {gw_launches} kernel launches for "
               "4 gateway quanta on the card")
+        check(gw_routes == {"rounds": 4, "walk": 0, "serial": 0},
+              f"quantum: the gateway's launches by route {gw_routes}")
         print(f"quantum gateway: handle_quantum of 10,000 requests over 512 "
               f"entitlements, responses identical on cuda and cpu; "
               f"{10_000 / gw_best:.0f} decisions/s on the card (best of 3 "
               f"after a warm-up, host clock, all bookkeeping), {10_000 / best:.0f} "
-              f"on the CPU (one quantum after a warm-up); card {card}")
+              f"on the CPU (one quantum after a warm-up); kernel launches by route "
+              f"{gw_routes}; card {card}")
 
         # 4. the paper's experiments and the multi-pool scenario; the
         # kernel's launches are counted on the card's quantum-mode runs
-        admit_scan.launches = 0
+        reset_counts()
         recs, claims = {}, []
         for dev in ("cuda", "cpu"):
             for name, make in (
@@ -781,6 +883,7 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
                 recs[dev, name] = (sim_record(sim),
                                    time.perf_counter() - t, sim)
         launches = admit_scan.launches
+        route_counts = dict(admit_scan.route_launches)
         for name in ("exp1 admission", "exp1 baseline", "exp2",
                      "routing quantum", "routing scalar"):
             check(recs["cuda", name][0] == recs["cpu", name][0],
@@ -788,6 +891,9 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
                   "tick records or timeline)")
         check(launches > 0, "quantum: admit_quantum never launched on the "
                             "card's quantum-mode run")
+        check(route_counts["serial"] == 0 and launches == sum(
+            route_counts.values()), f"quantum: the experiments' launches "
+              f"by route {route_counts} (of {launches})")
         check(not plain_on_cuda[0], f"quantum: the plain version was called "
               f"on CUDA tensors {plain_on_cuda[0]} times")
     finally:
@@ -831,7 +937,7 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
     print("quantum experiments: requests, tick records and timelines "
           "identical on cuda and cpu for exp1 (both arms), exp2 and the "
           f"routing scenario (both modes); admit_quantum launches on the "
-          f"card's run {launches}; plain calls on CUDA {plain_on_cuda[0]}; "
+          f"card's run {launches}, by route {route_counts}; plain calls on CUDA {plain_on_cuda[0]}; "
           f"wall cuda / cpu: {secs}; card {card}")
     for line in claims:
         print(f"quantum claim: {line}; card {card}")
@@ -842,8 +948,12 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
         "library_ms": None,
-        "shape": f"N={n} rows, M={m} requests; plain version on the CPU "
-                 "(host clock); bound excludes the serial chain of M steps",
+        "previous_ms": draws[0]["previous_ms"],
+        "previous": "serial kernel (admit_quantum_serial_launch)",
+        "launches_by_route": route_counts,
+        "draws": draws,
+        "shape": f"N={n} rows, M={m} requests, first draw; plain version "
+                 "on the CPU (host clock)",
     }
 
 

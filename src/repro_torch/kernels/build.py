@@ -98,15 +98,17 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
+def function(name: str, entry: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``entry`` of ``csrc/<name>.cu``, returning a
-    ``cudaError_t`` as an int; its argument types are set on the first
-    call only (launches sit on the host-bound decode step)."""
+    ``cudaError_t`` as an int unless ``restype`` says otherwise; its
+    argument types are set on the first call only (launches sit on the
+    host-bound decode step)."""
     fn = _FNS.get((name, entry))
     if fn is None:
         fn = getattr(library(name), entry)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FNS[(name, entry)] = fn
     return fn
 
