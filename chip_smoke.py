@@ -34,13 +34,24 @@ each reported on its own line:
    Experiments 1 and 2 and the multi-pool routing scenario (quantum and
    scalar admission) through the port's simulators on the card against
    the CPU, with the kernel's launches counted by route on that path;
-5. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
+5. ``planner`` — the fleet planner, the telemetry plane and the chaos
+   harness: ``plan_fleet`` on the card against the CPU at 8, 64 and 512
+   seeded pools (``demand_ewma`` 0.7; decisions identical, EWMA 0 ulps)
+   and one ``FleetPlanner.plan`` timed on each device; Experiment 3
+   (surge, outage, scale-up, migration, cooldown) in quantum and scalar
+   admission on the card against the CPU, with its claim rows; the
+   10,000-request gateway quantum with telemetry off and on, and
+   ``explain()`` against the CPU's; every chaos scenario under every
+   invariant checker and its three-mode replay, on the card against
+   the CPU, with the kernel's denials; ``admit_quantum`` launches
+   counted by route in each part;
+6. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
    full-depth Qwen3-8B (bf16, random init from ``--seed``) serving a
    guaranteed and a spot tenant; every flash launch on this path must
    take the tensor-core route and every paged launch the split kernel,
    and a reduced model served on the card must give the same greedy
    tokens as on the CPU;
-6. ``profile`` — a decode step and a prefill of 8 lanes on the same
+7. ``profile`` — a decode step and a prefill of 8 lanes on the same
    model, on the host clock and under ``torch.profiler`` (device time
    by kernel).
 
@@ -624,6 +635,28 @@ def admit_draws(np, torch, seed: int, n: int, m: int):
     yield ("hot row (50 %)", args, scal)
 
 
+def quantum_gateway(core, Gateway, dev: str, telemetry=None):
+    """The gateway quantum's fleet (``admission_throughput._bench_gateway``):
+    one pool of 512 elastic entitlements, one key each, on ``dev``."""
+    pool = core.TokenPool(core.PoolSpec(
+        name="p", model="m", scaling=core.ScalingBounds(1, 1),
+        per_replica=core.Resources(1e9, 1e15, 1e6)), device=dev)
+    gw = Gateway(pool, telemetry=telemetry)
+    for i in range(512):
+        pool.add_entitlement(core.EntitlementSpec(
+            name=f"e{i}", tenant_id=f"t{i}", pool="p",
+            qos=core.QoS(core.ServiceClass.ELASTIC, 1000.0),
+            baseline=core.Resources(1e6, 0.0, 1e3)))
+        gw.register_key(f"k{i}", f"e{i}", pool="p")
+    return gw
+
+
+def quantum_requests(QuantumRequest, tag: str) -> list:
+    """The 10,000 requests of one gateway quantum."""
+    return [QuantumRequest(f"k{i % 512}", f"{tag}{i}", 64, 64)
+            for i in range(10_000)]
+
+
 def phase_quantum(torch, np, seed: int, card: str) -> dict:
     """The batched admission path on the card (see the module
     docstring).  Returns the ``admit_quantum`` kernel's report entry."""
@@ -805,32 +838,15 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
               f"card {card}")
 
         # 3. one 10,000-request quantum through the gateway
-        def gateway(dev):
-            pool = core.TokenPool(core.PoolSpec(
-                name="p", model="m", scaling=core.ScalingBounds(1, 1),
-                per_replica=core.Resources(1e9, 1e15, 1e6)), device=dev)
-            gw = Gateway(pool)
-            for i in range(512):
-                pool.add_entitlement(core.EntitlementSpec(
-                    name=f"e{i}", tenant_id=f"t{i}", pool="p",
-                    qos=core.QoS(core.ServiceClass.ELASTIC, 1000.0),
-                    baseline=core.Resources(1e6, 0.0, 1e3)))
-                gw.register_key(f"k{i}", f"e{i}", pool="p")
-            return gw
-
-        def quantum(tag):
-            return [QuantumRequest(f"k{i % 512}", f"{tag}{i}", 64, 64)
-                    for i in range(10_000)]
-
         # a warm-up quantum and a second one compared between the
         # devices, then two more timed on the card alone
         resp, best = {}, float("inf")
         reset_counts()
         for dev in ("cuda", "cpu"):
-            gw = gateway(dev)
+            gw = quantum_gateway(core, Gateway, dev)
             resp[dev] = []
             for rep in range(4 if dev == "cuda" else 2):
-                qs = quantum(f"q{rep}-")
+                qs = quantum_requests(QuantumRequest, f"q{rep}-")
                 t = time.perf_counter()
                 out = gw.handle_quantum(qs, 0.0)
                 if rep:
@@ -957,7 +973,370 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
     }
 
 
-# -- phase 5 -------------------------------------------------------------------
+# -- phase 5: the planner --------------------------------------------------------
+def exp3_sim(serving, core, mode: str, device: str):
+    """Experiment 3 (``benchmarks/experiment3_autoscale.py::build``, the
+    parameters kept here): a guaranteed assistant and an elastic
+    analytics tenant on east, spot batch; analytics surges 4x at 20 s,
+    east loses two replicas at 30 s (back at 55 s), the surge ends at
+    65 s; the fleet planner closes the loop every accounting tick."""
+    sc, wl = core.ServiceClass, serving.Workload
+    sim = serving.MultiPoolSimulator(
+        [wl(name="assist", service_class=sc.GUARANTEED, slots=4,
+            slo_ms=500.0, rate_rps=1.0, in_tokens=64, out_tokens=64,
+            pools=("east", "west"), max_retries=2),
+         wl(name="analytics", service_class=sc.ELASTIC, slots=8,
+            slo_ms=2000.0, rate_rps=0.8, in_tokens=64, out_tokens=64,
+            pools=("east",), max_retries=2),
+         wl(name="batch", service_class=sc.SPOT, slots=4, slo_ms=30000.0,
+            rate_rps=0.6, in_tokens=64, out_tokens=64, pools=("east",),
+            max_retries=1)],
+        sites=[serving.PoolSite("east", n_replicas=2, replica_slots=8,
+                                replica_tps=120.0, max_replicas=3),
+               serving.PoolSite("west", n_replicas=1, replica_slots=8,
+                                replica_tps=120.0, max_replicas=3)],
+        autoscale=True, provision_lag_s=3.0, drain_s=2.0,
+        planner_config=core.FleetPlannerConfig(
+            cooldown_ticks=5, debt_migrate_threshold=0.2,
+            starve_persistence_ticks=3, migrate_cooldown_ticks=15),
+        admission_mode=mode, device=device)
+    sim.at(20.0, "set_rate", workload="analytics", rate=3.2)
+    for t, kind in ((30.0, "fail_replica"), (55.0, "recover_replica")):
+        for idx in (1, 2):
+            sim.at(t, kind, pool="east", idx=idx)
+    sim.at(65.0, "set_rate", workload="analytics", rate=0.8)
+    return sim
+
+
+def plan_record(plan) -> tuple:
+    """Every decision, scale event and migration of one fleet plan."""
+    return (sorted((k, d.current, d.desired, d.reason, d.reserved_tps,
+                    d.demand_tps) for k, d in plan.decisions.items()),
+            sorted(plan.scale_events.items()),
+            sorted(plan.unmet_replicas.items()),
+            [dataclasses.astuple(m) for m in plan.migrations],
+            [dataclasses.astuple(m) for m in plan.applied],
+            [dataclasses.astuple(m) for m in plan.skipped])
+
+
+def plan_inputs(np, seed: int, P: int) -> dict:
+    """[P] seeded ``plan_fleet`` inputs: mixed bounds, replica shapes
+    with a missing dimension (infinite need), reserves, demands, a fifth
+    of the rows unseeded."""
+    r = np.random.RandomState(seed)
+    return dict(
+        current=r.randint(1, 9, P).astype(np.int32),
+        lo=r.randint(1, 3, P).astype(np.int32),
+        hi=r.randint(3, 9, P).astype(np.int32),
+        per_tps=r.choice([0.0, 120.0, 240.0, 250.0], P).astype(np.float32),
+        per_kv=r.choice([0.0, 1e9], P).astype(np.float32),
+        per_conc=r.choice([0.0, 4.0, 16.0], P).astype(np.float32),
+        res_tps=(r.uniform(0, 960, P) * (r.rand(P) < 0.7)).astype(
+            np.float32),
+        res_kv=r.choice([0.0, 5e8, 3e9], P).astype(np.float32),
+        res_conc=(r.uniform(0, 32, P) * (r.rand(P) < 0.5)).astype(
+            np.float32),
+        demand_tps=r.uniform(0, 2500, P).astype(np.float32),
+        ewma_prev=r.uniform(0, 2500, P).astype(np.float32),
+        seeded=r.rand(P) < 0.8,
+        low_ticks=r.randint(0, 6, P).astype(np.int32))
+
+
+def planner_fleet(core, np, seed: int, P: int, dev: str):
+    """P pools of one guaranteed or elastic entitlement each on ``dev``,
+    and a seeded demand per pool for each of 8 planning rounds."""
+    r = np.random.RandomState(seed)
+    pools, demand = {}, []
+    for i in range(P):
+        name = f"p{i:03d}"
+        pool = core.TokenPool(core.PoolSpec(
+            name=name, model="m",
+            scaling=core.ScalingBounds(1, int(r.randint(2, 9))),
+            per_replica=core.Resources(240.0, 0.0, 16.0)), device=dev)
+        pool.add_entitlement(core.EntitlementSpec(
+            name=f"e{i}", tenant_id="t", pool=name,
+            qos=core.QoS(core.ServiceClass.ELASTIC if i % 2
+                         else core.ServiceClass.GUARANTEED, 1000.0),
+            baseline=core.Resources(float(r.uniform(0, 960)), 0.0,
+                                    float(r.randint(0, 32)))))
+        pools[name] = pool
+    for _ in range(8):
+        demand.append({name: float(r.uniform(0, 2500)) for name in pools})
+    return pools, demand
+
+
+def phase_planner(torch, np, seed: int, card: str) -> dict:
+    """The fleet planner, the closed loop, telemetry and the chaos
+    library on the card, each against the same on the CPU (see the
+    module docstring).  Returns the ``admit_quantum`` launches by route
+    of each part, for the kernel report."""
+    import repro_torch.core as core
+    import repro_torch.serving as serving
+    from repro_torch import chaos
+    from repro_torch.core.fleet import plan_fleet
+    from repro_torch.gateway import Gateway, QuantumRequest
+    gw_mod = importlib.import_module("repro_torch.gateway.gateway")
+    aq_mod = importlib.import_module(
+        "repro_torch.kernels.admit_quantum.admit_quantum")
+    admit_scan = aq_mod.admit_scan
+
+    def reset_counts():
+        admit_scan.launches = 0
+        for k in admit_scan.route_launches:
+            admit_scan.route_launches[k] = 0
+
+    def read_counts(what: str) -> dict:
+        routes = dict(admit_scan.route_launches)
+        check(routes["serial"] == 0 and admit_scan.launches == sum(
+            routes.values()), f"planner: {what}: admit_quantum launches by "
+              f"route {routes} (of {admit_scan.launches})")
+        return routes
+
+    # 1. plan_fleet on the card against the CPU, then one
+    # FleetPlanner.plan (gather, one copy each way, the plan) timed on
+    # each device
+    cfg = core.FleetPlannerConfig(demand_ewma=0.7, cooldown_ticks=3)
+    rows = []
+    for P in (8, 64, 512):
+        a = plan_inputs(np, seed + P, P)
+        outs = {dev: [x.cpu().numpy() for x in plan_fleet(
+            **{k: torch.from_numpy(v).to(dev) for k, v in a.items()},
+            config=cfg)] for dev in ("cuda", "cpu")}
+        g, c = outs["cuda"], outs["cpu"]
+        for i, name in ((0, "desired"), (1, "reason"), (3, "low ticks")):
+            check(np.array_equal(g[i], c[i]), f"planner: plan_fleet {name} "
+                  f"differ between cuda and cpu at P={P}")
+        ewma_ulps, need_ulps = ulps(np, g[2], c[2]), ulps(np, g[4], c[4])
+        check(ewma_ulps == 0, f"planner: plan_fleet EWMA {ewma_ulps} ulps "
+                              f"from the CPU's at P={P}")
+        # the need is one correctly rounded division on both devices
+        check(need_ulps == 0, f"planner: plan_fleet need {need_ulps} ulps "
+                              f"from the CPU's at P={P}")
+        wall, plans = {}, {}
+        for dev in ("cuda", "cpu"):
+            pools, demand = planner_fleet(core, np, seed + P, P, dev)
+            planner = core.FleetPlanner(cfg)
+            times, plans[dev] = [], []
+            for t, d in enumerate(demand, start=1):
+                records = {n: core.TickRecord(
+                    t=float(t), capacity_tps=0.0, allocations={},
+                    priorities={}, debts={}, bursts={}, in_flight={},
+                    demand_tps={f"e{int(n[1:])}": v}) for n, v in d.items()}
+                s = time.perf_counter()
+                plan = planner.plan(pools, records, float(t))
+                times.append(time.perf_counter() - s)
+                plans[dev].append(plan_record(plan))
+                for n, dec in plan.decisions.items():
+                    pools[n].set_replicas(dec.desired)
+            wall[dev] = 1e3 * float(np.median(times[1:]))
+        check(plans["cuda"] == plans["cpu"], f"planner: FleetPlanner plans "
+              f"differ between a CUDA fleet and a CPU fleet at P={P}")
+        reasons = np.bincount(c[1], minlength=5).tolist()
+        rows.append(f"P={P}: decisions and reasons {reasons} identical, "
+                    f"EWMA 0 ulps, need {need_ulps} ulps; one "
+                    f"FleetPlanner.plan {wall['cuda']:.3f} ms on the card, "
+                    f"{wall['cpu']:.3f} ms on the CPU")
+    print("planner plan_fleet: demand_ewma 0.7, cuda vs cpu; wall ms of "
+          "one plan (median of 7 after a first, host clock: gather, one "
+          "copy each way, the plan, 8 rounds of identical plans on both "
+          f"devices): " + "; ".join(rows) + f"; card {card}")
+
+    # a plain version reached with CUDA tensors would be a silent
+    # fallback: count such calls for the rest of the phase
+    plain_on_cuda = [0]
+    plain = aq_mod.reference_admit_scan
+
+    def guarded(*a, **kw):
+        plain_on_cuda[0] += int(a[8].is_cuda)
+        return plain(*a, **kw)
+
+    kernel_denials = [0]
+    admit = gw_mod.admit_quantum
+
+    def counted(*a, **kw):
+        out = admit(*a, **kw)
+        kernel_denials[0] += int(((~out[0]) & kw["req_live"]).sum())
+        return out
+
+    aq_mod.reference_admit_scan = guarded
+    launches = {}
+    try:
+        # 2. Experiment 3, quantum and scalar admission, on the card and
+        # the CPU
+        recs = {}
+        for mode in ("quantum", "scalar"):
+            for dev in ("cuda", "cpu"):
+                reset_counts()
+                sim = exp3_sim(serving, core, mode, dev)
+                t = time.perf_counter()
+                res = sim.run(90.0)
+                secs = time.perf_counter() - t
+                if dev == "cuda" and mode == "quantum":
+                    launches["exp3"] = read_counts("exp3")
+                rec = (sim_record(sim), res["replica_timeline"],
+                       [(t, plan_record(p)) for t, p in sim.plans],
+                       [dataclasses.astuple(m) for m in res["migrations"]])
+                recs[mode, dev] = (rec, secs, sim, res)
+        for mode in ("quantum", "scalar"):
+            check(recs[mode, "cuda"][0] == recs[mode, "cpu"][0],
+                  f"planner: exp3 ({mode}) differs between cuda and cpu "
+                  "(requests, ticks, replica timeline, plans or "
+                  "migrations)")
+        check(sum(launches["exp3"].values()) > 0,
+              "planner: admit_quantum never launched on exp3's card run")
+        sim, res = recs["quantum", "cuda"][2:]
+        east = res["replica_timeline"]["east"]
+        reasons: dict = {}
+        for _, plan in sim.plans:
+            for d in plan.decisions.values():
+                reasons[d.reason] = reasons.get(d.reason, 0) + 1
+        east_ups = [t for t, p in sim.plans
+                    if p.decisions["east"].reason == "scale_up:demand"]
+        east_downs = [t for t, p in sim.plans
+                      if p.decisions["east"].reason == "scale_down"]
+        migs = res["migrations"]
+        after = [n for t, n in east if t >= 55.0]
+        p99 = {}
+        for label, t0, t1 in (("before", 5.0, 20.0), ("surge", 20.0, 30.0),
+                              ("outage", 30.0, 55.0), ("after", 70.0, 90.0)):
+            e2e = [r.e2e for r in sim.requests.values()
+                   if r.entitlement == "assist" and r.e2e is not None
+                   and t0 <= r.arrival_s < t1]
+            p99[label] = float(np.percentile(e2e, 99)) if e2e else \
+                float("nan")
+        # the claims as ``experiment3_autoscale`` checks them
+        check(east_ups and any(n >= 3 for t, n in east
+                               if 20.0 <= t < 30.0),
+              "planner: exp3 C1: east was not scaled up through the surge")
+        check(len(migs) >= 1 and migs[0].debt > 0.0,
+              f"planner: exp3 C2: no migration with carried debt: {migs}")
+        check(after == sorted(after, reverse=True) and east[-1][1] == 2,
+              f"planner: exp3 C4: east did not drain to 2 without "
+              f"flapping after its recovery: {after}")
+        wall = {(mode, dev): recs[mode, dev][1] for mode, dev in recs}
+        print(f"planner exp3: requests, tick records, replica timelines, "
+              f"{len(sim.plans)} plans and the migrations identical on "
+              f"cuda and cpu in quantum and scalar admission; "
+              f"{len(sim.requests)} requests; admit_quantum launches on the "
+              f"card's quantum run by route {launches['exp3']}; wall cuda / "
+              f"cpu: quantum {wall['quantum', 'cuda']:.2f} / "
+              f"{wall['quantum', 'cpu']:.2f} s, scalar "
+              f"{wall['scalar', 'cuda']:.2f} / {wall['scalar', 'cpu']:.2f} "
+              f"s; card {card}")
+        print(f"planner claim C1: east at 3 replicas through the surge "
+              f"(20-30 s); east's scale_up:demand plans {len(east_ups)}, "
+              f"the first at {east_ups[0]:.2f} s; scale reasons of all "
+              f"plans {reasons}; card {card}")
+        m = migs[0]
+        print(f"planner claim C2: migrated {m.entitlement} {m.src}->{m.dst} "
+              f"({m.reason}), debt {m.debt:.4f} carried; west peak "
+              f"{max(n for _, n in res['replica_timeline']['west'])}; card "
+              f"{card}")
+        print("planner claim C3: assist P99 e2e by window (before / surge / "
+              "outage / after) " + " / ".join(
+                  f"{p99[k]:.3f}" for k in ("before", "surge", "outage",
+                                            "after")) + f" s; card {card}")
+        print(f"planner claim C4: east from its recovery at 55 s "
+              f"{after[:6]} ..., final {east[-1][1]}, never rising; "
+              f"scale_down at {[round(t, 2) for t in east_downs]} s; card "
+              f"{card}")
+
+        # 3. the 10,000-request gateway quantum with telemetry off and on
+        # (turns, best of 3 after a warm-up), and explain() against the
+        # CPU's
+        reset_counts()
+        gws = {tel: quantum_gateway(core, Gateway, "cuda", telemetry=tel)
+               for tel in (None, True)}
+        best = {None: float("inf"), True: float("inf")}
+        for rep in range(4):
+            for tel, gw in gws.items():
+                qs = quantum_requests(QuantumRequest, f"t{rep}-")
+                t = time.perf_counter()
+                gw.handle_quantum(qs, 0.0)
+                if rep:
+                    best[tel] = min(best[tel], time.perf_counter() - t)
+        launches["telemetry"] = read_counts("telemetry")
+        cpu_gw = quantum_gateway(core, Gateway, "cpu", telemetry=True)
+        for rep in range(4):
+            cpu_gw.handle_quantum(quantum_requests(QuantumRequest,
+                                                   f"t{rep}-"), 0.0)
+        sample = [f"t{rep}-{i}" for rep in range(4)
+                  for i in range(0, 10_000, 97)]
+
+        def explained(gw, rid):
+            tr = gw.telemetry.flight.explain(rid)
+            return (tr.status, tr.reason, tr.pool, tr.spill_hops,
+                    [dataclasses.astuple(r) for r in tr.legs])
+
+        bad = [rid for rid in sample
+               if explained(gws[True], rid) != explained(cpu_gw, rid)]
+        check(not bad, f"planner: explain() differs between the card and "
+                       f"the CPU for {len(bad)} of {len(sample)} requests, "
+                       f"first {bad[:1]}")
+        off, on = 10_000 / best[None], 10_000 / best[True]
+        print(f"planner telemetry: handle_quantum of 10,000 requests on the "
+              f"card, {off:.0f} decisions/s with telemetry off, {on:.0f} "
+              f"with it on ({100 * (off / on - 1):+.1f} % time; best of 3 "
+              f"after a warm-up, in turns, host clock); explain() of "
+              f"{len(sample)} sampled requests identical to the CPU run's; "
+              f"{len(gws[True].telemetry.flight)} flight rows; launches by "
+              f"route {launches['telemetry']}; card {card}")
+
+        # 4. the chaos library: every checker, and the three-mode replay,
+        # on the card and on the CPU
+        gw_mod.admit_quantum = counted
+        reset_counts()
+        lines = []
+        for sc in chaos.SCENARIOS:
+            row = {}
+            for dev in ("cuda", "cpu"):
+                kernel_denials[0] = 0
+                t = time.perf_counter()
+                rep = chaos.run_scenario(sc, device=dev)
+                run_s = time.perf_counter() - t
+                check(rep["passed"], f"planner: chaos {sc.name} on {dev}: "
+                      f"{rep['violations'][:3]}")
+                t = time.perf_counter()
+                res = chaos.run_replay(sc, device=dev)
+                replay_s = time.perf_counter() - t
+                check(res.identical, f"planner: chaos {sc.name} on {dev}: "
+                      f"the three modes differ: {res.mismatches[:3]}")
+                traces = {label: (
+                    {rid: dataclasses.astuple(o)
+                     for rid, o in tr.outcomes.items()},
+                    tr.flight_legs, tr.flight_priority)
+                    for label, tr in res.traces.items()}
+                row[dev] = (traces, run_s, replay_s, kernel_denials[0],
+                            len(rep["checkers"]))
+            check(row["cuda"][0] == row["cpu"][0], f"planner: chaos "
+                  f"{sc.name}: the card's traces differ from the CPU's")
+            denied = sum(o[2] == "denied" for o in
+                         row["cuda"][0]["quantum_fast"][0].values())
+            lines.append(
+                f"{sc.name} {row['cuda'][1]:.2f}+{row['cuda'][2]:.2f} / "
+                f"{row['cpu'][1]:.2f}+{row['cpu'][2]:.2f} s, "
+                f"{row['cuda'][3]} kernel denials, {denied} of "
+                f"{len(row['cuda'][0]['quantum_fast'][0])} requests denied")
+        launches["chaos"] = read_counts("chaos")
+        check(sum(launches["chaos"].values()) > 0,
+              "planner: admit_quantum never launched on the chaos runs")
+        check(not plain_on_cuda[0], f"planner: the plain version was called "
+              f"on CUDA tensors {plain_on_cuda[0]} times")
+    finally:
+        aq_mod.reference_admit_scan = plain
+        gw_mod.admit_quantum = admit
+    print(f"planner chaos: {len(chaos.SCENARIOS)} scenarios, each with "
+          f"every checker ({row['cuda'][4]}, mirror-coherence included): 0 "
+          f"violations on cuda and cpu; three-mode replays identical, and "
+          f"the card's traces identical to the CPU's; per scenario wall "
+          f"s cuda (run + replay) / cpu (run + replay), admit_quantum "
+          f"denials decided by the kernel on the card (run and both "
+          f"quantum modes of the replay): " + "; ".join(lines)
+          + f"; launches by route {launches['chaos']}; card {card}")
+    return launches
+
+
+# -- phase 6 -------------------------------------------------------------------
 def workload(np, seed: int, n: int, vocab: int):
     """Prompts of 32–512 tokens drawn from ``seed``, alternating
     tenants, one arrival every 0.25 simulated seconds."""
@@ -1394,6 +1773,9 @@ def main(argv=None) -> int:
         phase_control(torch, np, args.seed)
         phase = "quantum"
         admit_report = phase_quantum(torch, np, args.seed, card)
+        phase = "planner"
+        admit_report["launches_planner_phase"] = phase_planner(
+            torch, np, args.seed, card)
         phase = "serve"
         served = phase_serve(torch, np, args.seed, args.requests)
         phase_small_reference(torch, np, args.seed)

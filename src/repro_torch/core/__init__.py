@@ -11,7 +11,10 @@ path uses:
   pool's control-plane state, mirrored on the pool's device
 - pool: TokenPool controller (stateful shell over the control plane)
 - pool_manager: PoolManager (batched fleet tick, spill-over routing,
-  completion attribution)
+  completion attribution, fleet planning and entitlement migration)
+- autoscaler: Autoscaler (scalar single-pool scale policy, the oracle)
+- fleet: FleetPlanner (``plan_fleet`` over the whole fleet on its
+  device + cross-pool rebalancing)
 - admission: AdmissionController (the §4.3 five-check pipeline)
 - virtual_node: VirtualNodeProvider (scheduler-as-admission, §4.1)
 - vectorized: batched admission replay (``admit_quantum``, a
@@ -19,12 +22,25 @@ path uses:
 - ledger / state: token buckets and the Redis-contract state store
 """
 from repro_torch.core.admission import AdmissionController
+from repro_torch.core.autoscaler import (
+    Autoscaler,
+    AutoscalerConfig,
+    ScaleDecision,
+    replicas_for,
+)
 from repro_torch.core.control_plane import (
     ControlState,
     OracleRow,
     control_tick,
     control_tick_pools,
     reference_tick,
+)
+from repro_torch.core.fleet import (
+    FleetPlan,
+    FleetPlanner,
+    FleetPlannerConfig,
+    RebalanceProposal,
+    plan_fleet,
 )
 from repro_torch.core.ledger import Charge, Ledger, RowBucket, TokenBucket
 from repro_torch.core.request_table import (
@@ -84,18 +100,22 @@ from repro_torch.core.virtual_node import (
 
 __all__ = [
     "AdmissionController", "AdmissionDecision", "AdmissionRequest",
-    "CASConflict", "Charge", "ControlState", "DenyReason",
-    "EntitlementMigration", "EntitlementSpec", "EntitlementState",
-    "EntitlementStatus", "InFlight", "InFlightMap", "InFlightRow",
-    "LeasePod", "Ledger", "OracleRow", "PoolManager", "PoolSpec",
-    "PriorityCoefficients", "QoS", "QuantumSnapshot", "RequestTable",
+    "Autoscaler", "AutoscalerConfig", "CASConflict", "Charge",
+    "ControlState", "DenyReason", "EntitlementMigration",
+    "EntitlementSpec", "EntitlementState", "EntitlementStatus",
+    "FleetPlan", "FleetPlanner", "FleetPlannerConfig", "InFlight",
+    "InFlightMap", "InFlightRow", "LeasePod", "Ledger", "OracleRow",
+    "PoolManager", "PoolSpec", "PriorityCoefficients", "QoS",
+    "QuantumSnapshot", "RebalanceProposal", "RequestTable",
     "ResidentStatus", "ResidentStore", "Resources", "RouteEntry",
-    "RowBucket", "ScalingBounds", "ServiceClass", "SettleBatch",
-    "StateStore", "TickInputs", "TickRecord", "TokenBucket", "TokenPool",
-    "VirtualNode", "VirtualNodeProvider", "admit_quantum",
-    "arrays_from_pool", "as_manager", "burst_overconsumption",
-    "burst_update", "control_tick", "control_tick_pools", "debt_update",
-    "kv_bytes_per_token", "max_concurrency", "pool_average_slo",
+    "RowBucket", "ScaleDecision", "ScalingBounds", "ServiceClass",
+    "SettleBatch", "StateStore", "TickInputs", "TickRecord",
+    "TokenBucket", "TokenPool", "VirtualNode", "VirtualNodeProvider",
+    "admit_quantum", "arrays_from_pool", "as_manager",
+    "burst_overconsumption", "burst_update", "control_tick",
+    "control_tick_pools", "debt_update", "kv_bytes_per_token",
+    "max_concurrency", "plan_fleet", "pool_average_slo",
     "priority_breakdown", "priority_weight", "quantum_snapshot",
-    "reference_tick", "running_min_live", "service_gap", "waterfill",
+    "reference_tick", "replicas_for", "running_min_live",
+    "service_gap", "waterfill",
 ]

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from collections import deque
 from typing import Optional
 
@@ -294,6 +295,11 @@ class TokenPool:
         #: bounded tick history (spec.history_maxlen; None = unbounded)
         self.history: deque = deque(maxlen=spec.history_maxlen)
         self._last_tick = now
+        #: optional ``repro_torch.telemetry.Telemetry`` sink (set by
+        #: ``Telemetry.attach_pool``); when present every tick emits a
+        #: duration sample + water-fill/debt gauges + a trace slice
+        self.telemetry = None
+        self._tick_t0 = 0.0
         #: TTL deadlines for the (rare) entitlements that declare one —
         #: expiry scans these, not the whole membership
         self._ttl_deadline: dict[str, float] = {}
@@ -1041,6 +1047,7 @@ class TokenPool:
         interval retains exactly ½, the historical fixed blend, while
         irregular tick spacing now yields a tick-rate-independent time
         constant."""
+        self._tick_t0 = time.perf_counter()
         dt = max(1e-9, now - self._last_tick)
         self._last_tick = now
         self.expire_entitlements(now)
@@ -1162,6 +1169,15 @@ class TokenPool:
             demand_tps=c["demand_tps"][idx].copy(),
         )
         self.history.append(rec)
+        if self.telemetry is not None:
+            # once per tick (O(pools), not O(requests)): duration +
+            # water-fill/debt totals into the registry + trace timeline
+            self.telemetry.on_tick(
+                self.spec.name, now,
+                time.perf_counter() - self._tick_t0,
+                alloc_total=float(alloc64[idx].sum()),
+                debt_total=float(c["debt"][idx].sum()),
+                in_flight=int(c["in_flight"][idx].sum()))
         return rec
 
     @hot_path

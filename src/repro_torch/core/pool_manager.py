@@ -15,10 +15,12 @@ entitlement) legs with spill-over.  This module provides:
    unavailable and always skipped.
 3. **Completion attribution** — per request and batched, with the
    cross-pool debt transfer for requests served off a spill leg.
-
-Entitlement migration and fleet planning (``migrate_entitlement``,
-``plan_quantum``) wait for the planner slice (ROADMAP queue A) and
-raise.
+4. **Fleet planning** — ``plan_quantum`` closes the loop: batched
+   tick → ``core.fleet.FleetPlanner`` (one ``plan_fleet`` call on the
+   fleet's device) → authorize/provision each pool → apply the
+   planner's rebalance proposals through ``migrate_entitlement``,
+   which carries an entitlement's bucket level, debt/burst, in-flight
+   records and demand signal to another pool.
 """
 from __future__ import annotations
 
@@ -53,6 +55,16 @@ class PoolManager:
 
     def __init__(self, pools: Iterable[TokenPool] = ()) -> None:
         self.pools: dict[str, TokenPool] = {}
+        #: fleet capacity planner (created lazily by ``plan_quantum``;
+        #: assign one to customize ``FleetPlannerConfig``)
+        self.planner = None
+        #: ``hook(pool, decision, now)`` — when set, scale decisions
+        #: are handed to it instead of applied instantly, so a
+        #: deployment (or ``MultiPoolSimulator``) can model
+        #: provisioning lag and scale-down draining.  The promise
+        #: ceiling (``authorize_replicas``) always moves at decision
+        #: time regardless.
+        self.provision_hook = None
         #: per-group cache of the stacked [P, W] device state fed to
         #: ``control_tick_pools`` — the tick's own output is next tick's
         #: input, so steady-state fleet ticks re-upload NOTHING
@@ -411,18 +423,85 @@ class PoolManager:
     # -- fleet capacity planning -------------------------------------------------
     def migrate_entitlement(self, name: str, src: str, dst: str,
                             now: float = 0.0):
-        """Move ``name`` from pool ``src`` to pool ``dst`` with its
-        bucket, debt/burst and in-flight records — with the fleet
-        planner, not yet ported."""
-        raise NotImplementedError(
-            "PoolManager.migrate_entitlement — the fleet planner is "
-            "ROADMAP queue A, 'the planner'")
+        """Move ``name`` from pool ``src`` to pool ``dst``, carrying
+        its ledger bucket level, debt/burst, in-flight records and
+        demand signal (invariants: ``core.fleet`` module docstring).
+        The destination's authorized ceiling is raised first if a
+        planner had shrunk it, so the arriving reserve does not
+        spuriously degrade.  Returns the entitlement's state on the
+        destination."""
+        from repro_torch.core.autoscaler import replicas_for
+        from repro_torch.core.types import ServiceClass
+
+        spool, dpool = self.pools[src], self.pools[dst]
+        espec = spool.entitlements[name]
+        if dpool._authorized is not None \
+                and espec.qos.service_class not in (
+                    ServiceClass.SPOT, ServiceClass.PREEMPTIBLE):
+            node = dpool.provider.node(dst)
+            needed = replicas_for(node.allocated + espec.baseline,
+                                  dpool.spec.per_replica)
+            needed = min(int(np.ceil(min(needed, 1e9))),
+                         dpool.spec.scaling.max_replicas)
+            if needed > dpool._authorized:
+                dpool.authorize_replicas(needed)
+        mig = spool.detach_entitlement(name, now)
+        try:
+            return dpool.attach_entitlement(mig, now)
+        except Exception:
+            # roll back: re-adopt on the source so nothing is lost —
+            # bucket level, debt/burst, charges and in-flight records
+            # all travel back with the same migration payload
+            spool.attach_entitlement(mig, now)
+            raise
 
     def plan_quantum(self, now: float, records=None):
-        """One closed-loop fleet planning round — not yet ported."""
-        raise NotImplementedError(
-            "PoolManager.plan_quantum — the fleet planner is ROADMAP "
-            "queue A, 'the planner'")
+        """One closed-loop planning round for the fleet: batched tick →
+        ONE ``plan_fleet`` call on the fleet's device → apply.
+
+        Per decision the pool's PROMISE ceiling moves immediately
+        (``authorize_replicas`` — a shrink below committed reservations
+        preempts leases via the virtual-node scheduler pass), while
+        LIVE replicas move through ``provision_hook`` when one is set
+        (provisioning lag / drain modelling) or instantly otherwise.
+        Rebalance proposals are then executed via
+        :meth:`migrate_entitlement`.  Pass the tick's ``records`` to
+        reuse an accounting tick this quantum already ran."""
+        from repro_torch.core.fleet import FleetPlanner
+
+        if records is None:
+            records = self.tick(now)
+        if self.planner is None:
+            self.planner = FleetPlanner()
+        plan = self.planner.plan(self.pools, records, now)
+        for name, d in plan.decisions.items():
+            pool = self.pools[name]
+            if pool._authorized != d.desired:
+                prev = (pool._authorized if pool._authorized is not None
+                        else d.current)
+                if prev != d.desired:
+                    plan.scale_events[name] = (prev, d.desired)
+                preempted = pool.authorize_replicas(d.desired)
+                if preempted:
+                    plan.preempted[name] = preempted
+            if d.desired != d.current:
+                if self.provision_hook is not None:
+                    self.provision_hook(pool, d, now)
+                else:
+                    pool.set_replicas(d.desired)
+        for prop in plan.migrations:
+            # a pool can FAIL between planning and execution (the plan
+            # and the outage land in the same quantum): migrating into
+            # a dead pool would strand the entitlement behind zero
+            # capacity, so the proposal is skipped — the planner will
+            # re-propose next round if the target recovers
+            if not self.available(prop.dst):
+                plan.skipped.append(prop)
+                continue
+            self.migrate_entitlement(prop.entitlement, prop.src,
+                                     prop.dst, now)
+            plan.applied.append(prop)
+        return plan
 
 
 PoolOrManager = Union[TokenPool, PoolManager]

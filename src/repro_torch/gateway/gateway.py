@@ -27,8 +27,12 @@ Two request paths share these semantics:
   into the next leg's batch, so routes keep their ``route_order``
   semantics.  Requests are padded per call as the reference pads them.
 
-The fleet planner hook (``plan_quantum``) waits for the planner slice
-and the telemetry plane for its own (ROADMAP queue A); both raise.
+:meth:`Gateway.plan_quantum` runs one fleet planning round
+(``PoolManager.plan_quantum``) and surfaces it in the stats store.
+``Gateway(telemetry=True)`` records every decision into the telemetry
+plane (``repro_torch.telemetry``): one batch of rows per dispatch on
+the quantum paths, the pool's bucket levels copied to the host once per
+dispatch; with telemetry off (the default) none of this runs.
 
 State lives in the StateStore (Redis contract): key → route mapping and
 per-entitlement counters, so a real deployment can point this class at
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from itertools import chain
 from operator import attrgetter
 from typing import NamedTuple, Optional, Sequence, Union
@@ -66,6 +71,7 @@ from repro_torch.core.pool_manager import (
     as_manager,
 )
 from repro_torch.core.vectorized import admit_quantum, quantum_snapshot
+from repro_torch.telemetry import flight as flightrec
 
 #: C-speed attribute extractors for the quantum fast path.
 _Q_RID = attrgetter("request_id")
@@ -144,19 +150,28 @@ class Gateway:
         if spill_policy not in SPILL_POLICIES:
             raise ValueError(f"unknown spill policy {spill_policy!r}; "
                              f"expected one of {SPILL_POLICIES}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "Gateway(telemetry=...) — the telemetry plane is "
-                "ROADMAP queue A, 'telemetry/chaos'")
         self.manager = as_manager(pools)
         self.store = store or StateStore()
         self.spill_policy = spill_policy
         self.controllers: dict[str, AdmissionController] = {
             name: AdmissionController(pool)
             for name, pool in self.manager.pools.items()}
+        # ``telemetry=True`` builds a fresh
+        # ``repro_torch.telemetry.Telemetry``; passing an instance shares
+        # one plane across gateways.  Off by default, and then the
+        # quantum path does no telemetry work at all.
+        if telemetry is True:
+            from repro_torch.telemetry import Telemetry
+            telemetry = Telemetry()
+        self.telemetry = telemetry or None
+        if self.telemetry is not None:
+            for pool in self.manager.pools.values():
+                self.telemetry.attach_pool(pool)
         #: public knob: False forces ``handle_quantum`` through the
         #: generic leg-round loop even when the single-leg fast path
-        #: would apply
+        #: would apply — the chaos differential-replay harness runs the
+        #: same seeded scenario with this on/off (and against the
+        #: scalar ``handle``) to pin all three decision traces equal
         self.quantum_fast_enabled: bool = True
 
     # -- back-compat accessors -------------------------------------------------
@@ -232,8 +247,13 @@ class Gateway:
     def handle(self, api_key: str, request_id: str, input_tokens: int,
                max_tokens: Optional[int], now: float,
                kv_bytes_per_token: float = 0.0) -> GatewayResponse:
+        tel = self.telemetry
         route = self.route(api_key, now)
         if not route:
+            if tel is not None:
+                tel.record_terminal_one(
+                    now, request_id, flightrec.VERDICT_UNKNOWN_KEY,
+                    flightrec.REASON_NONE)
             return GatewayResponse(status=401, request_id=request_id,
                                    reason="unknown_key")
         legs = self.manager.route_order_indexed(
@@ -247,6 +267,17 @@ class Gateway:
                 max_tokens=max_tokens, arrival_s=now,
                 request_id=request_id,
                 kv_bytes_per_token=kv_bytes_per_token))
+            if tel is not None:
+                pool = self.manager.pool(leg.pool)
+                tel.attach_pool(pool)
+                mt = (max_tokens if max_tokens is not None
+                      else pool.spec.default_max_tokens)
+                tel.record_decision(
+                    leg.pool, now, request_id, hop, leg.entitlement,
+                    decision.admitted,
+                    flightrec.REASON_NONE if decision.reason is None
+                    else flightrec.REASON_CODES[decision.reason.value],
+                    decision.priority, float(input_tokens + mt))
             if decision.admitted:
                 self.store.incr(f"admits:{leg.entitlement}", 1.0, now)
                 if hop > 0:
@@ -280,6 +311,10 @@ class Gateway:
         else:
             self.store.incr(f"unroutable:{api_key}", 1.0, now)
         if first_denial is None:           # no live pool on the route
+            if tel is not None:
+                tel.record_terminal_one(
+                    now, request_id, flightrec.VERDICT_DENY,
+                    flightrec.REASON_POOL_UNAVAILABLE)
             return GatewayResponse(
                 status=429, request_id=request_id, retry_after_s=5.0,
                 reason=DenyReason.POOL_UNAVAILABLE.value)
@@ -329,9 +364,14 @@ class Gateway:
             return [self.handle(q.api_key, q.request_id, q.input_tokens,
                                 q.max_tokens, now,
                                 kv_bytes_per_token=q.kv_bytes_per_token)]
+        tel = self.telemetry
+        t0 = time.perf_counter() if tel is not None else 0.0
         fast = (self._quantum_fast(requests, now)
                 if self.quantum_fast_enabled else None)
         if fast is not None:
+            if tel is not None:
+                tel.on_quantum(now, len(requests),
+                               time.perf_counter() - t0)
             return fast
         responses: list[Optional[GatewayResponse]] = [None] * len(requests)
         # Routes are resolved once per distinct (key, token shape) at
@@ -339,6 +379,7 @@ class Gateway:
         # route (and its headroom ordering) is a constant.
         route_cache: dict[tuple, Optional[list]] = {}
         pending: list[_Pending] = []
+        unknown_ids: list[str] = []
         for i, q in enumerate(requests):
             ck = (q.api_key, q.input_tokens, q.max_tokens)
             legs = route_cache.get(ck, False)
@@ -353,8 +394,13 @@ class Gateway:
                 responses[i] = GatewayResponse(
                     status=401, request_id=q.request_id,
                     reason="unknown_key")
+                unknown_ids.append(q.request_id)
                 continue
             pending.append(_Pending(idx=i, req=q, legs=list(legs)))
+        if tel is not None and unknown_ids:
+            tel.record_terminal(now, unknown_ids,
+                                flightrec.VERDICT_UNKNOWN_KEY,
+                                flightrec.REASON_NONE)
 
         while pending:
             # spills from different pools (and espec-miss skips) land in
@@ -371,6 +417,8 @@ class Gateway:
             for pool_name, batch in groups.items():
                 pending.extend(self._admit_batch(pool_name, batch,
                                                  responses, now))
+        if tel is not None:
+            tel.on_quantum(now, len(requests), time.perf_counter() - t0)
         return responses
 
     def _finish_denied(self, p: _Pending, now: float) -> GatewayResponse:
@@ -381,6 +429,10 @@ class Gateway:
         else:
             self.store.incr(f"unroutable:{p.req.api_key}", 1.0, now)
         if p.first_reason is None:         # no live pool on the route
+            if self.telemetry is not None:
+                self.telemetry.record_terminal_one(
+                    now, p.req.request_id, flightrec.VERDICT_DENY,
+                    flightrec.REASON_POOL_UNAVAILABLE)
             return GatewayResponse(
                 status=429, request_id=p.req.request_id,
                 retry_after_s=5.0,
@@ -473,6 +525,9 @@ class Gateway:
             resolved.append((idxs, ck, legs))
         responses: list[Optional[GatewayResponse]] = [None] * n
         pools: dict[str, list] = {}
+        tel = self.telemetry
+        unknown_ids: list[str] = []
+        unroutable_ids: list[str] = []
         unroutable_incr: dict[str, float] = {}
         for idxs, ck, legs in resolved:
             key, inp, mx = ck
@@ -481,12 +536,14 @@ class Gateway:
                     responses[i] = GatewayResponse(
                         status=401, request_id=requests[i].request_id,
                         reason="unknown_key")
+                    unknown_ids.append(requests[i].request_id)
             elif not legs:               # route exists, no live pool
                 for i in idxs:
                     responses[i] = GatewayResponse(
                         status=429, request_id=requests[i].request_id,
                         retry_after_s=5.0,
                         reason=DenyReason.POOL_UNAVAILABLE.value)
+                    unroutable_ids.append(requests[i].request_id)
                 unroutable_incr[f"unroutable:{key}"] = \
                     unroutable_incr.get(f"unroutable:{key}", 0.0) \
                     + float(len(idxs))
@@ -496,6 +553,15 @@ class Gateway:
                     (idxs, key, leg.entitlement, inp, mx, hop))
         if unroutable_incr:
             self.store.incr_many(unroutable_incr, now)
+        if tel is not None:
+            if unknown_ids:
+                tel.record_terminal(now, unknown_ids,
+                                    flightrec.VERDICT_UNKNOWN_KEY,
+                                    flightrec.REASON_NONE)
+            if unroutable_ids:
+                tel.record_terminal(now, unroutable_ids,
+                                    flightrec.VERDICT_DENY,
+                                    flightrec.REASON_POOL_UNAVAILABLE)
         for pool_name, entries in pools.items():
             self._admit_batch_fast(pool_name, entries, requests,
                                    responses, now)
@@ -514,10 +580,16 @@ class Gateway:
         row_of = snap.row_of
         default_mt = pool.spec.default_max_tokens
         store = self.store
+        tel = self.telemetry
         #: StateStore deltas for the whole batch — flushed as ONE
         #: ``incr_many`` (the Redis pipeline shape) instead of one
         #: ``incr`` per key
         incr_acc: dict[str, float] = {}
+        # NOT_BOUND skips never reach the kernel; their decision rows
+        # record with ent_slot -1 and zeroed state dims
+        nb_rids: list[str] = []
+        nb_hops: list[int] = []
+        nb_toks: list[float] = []
         g_ent: list[str] = []
         g_key: list[str] = []
         g_hop: list[int] = []
@@ -537,6 +609,10 @@ class Gateway:
                     responses[i] = GatewayResponse(
                         status=429, request_id=requests[i].request_id,
                         reason=DenyReason.NOT_BOUND.value)
+                    if tel is not None:
+                        nb_rids.append(requests[i].request_id)
+                        nb_hops.append(hop)
+                        nb_toks.append(float(inp + mt))
                 incr_acc[f"denials:{ent}"] = \
                     incr_acc.get(f"denials:{ent}", 0.0) + float(len(idxs))
                 continue
@@ -549,6 +625,16 @@ class Gateway:
             g_mt.append(mt)
             counts.append(len(idxs))
             idx_lists.append(idxs)
+        if tel is not None and nb_rids:
+            tel.record_decisions(
+                pool_name, now, nb_rids,
+                np.full(len(nb_rids), -1, np.int64),
+                np.asarray(nb_hops, np.int64),
+                np.zeros(len(nb_rids), bool),
+                np.full(len(nb_rids), 1, np.int16),   # NOT_BOUND
+                0.0, float(snap.running_min_priority)
+                * (1.0 - pool.spec.admission_slack),
+                np.asarray(nb_toks, np.float64))
         if not counts:
             if incr_acc:
                 store.incr_many(incr_acc, now)
@@ -678,6 +764,23 @@ class Gateway:
                 incr_acc[k_den] = incr_acc.get(k_den, 0.0) + float(cnt)
         if incr_acc:
             store.incr_many(incr_acc, now)
+        if tel is not None:
+            # ONE flight scatter for the kernel batch, with reasons
+            # finalized the way responses were: a kernel admit the
+            # ledger rejected flips to TOKEN_BUDGET (code 3)
+            final_reasons = np.where(
+                charged, 0,
+                np.where(admitted, 3, reasons.astype(np.int64)))
+            tel.record_decisions(
+                pool_name, now, rids, rows64,
+                np.asarray(g_hop, np.int64)[gids], charged,
+                final_reasons.astype(np.int16),
+                np.asarray(req_w, np.float64),
+                float(snap.running_min_priority)
+                * (1.0 - pool.spec.admission_slack),
+                toks64,
+                levels_at=snap.bucket_level.cpu().numpy().astype(
+                    np.float64))
 
     @hot_path
     def _admit_batch(self, pool_name: str, batch: list[_Pending],
@@ -693,6 +796,10 @@ class Gateway:
         # NOT_BOUND without touching pool state (the scalar pipeline's
         # espec-is-None early out) — they skip the kernel entirely.
         kernel_batch: list[_Pending] = []
+        tel = self.telemetry
+        nb_rids: list[str] = []
+        nb_hops: list[int] = []
+        nb_toks: list[float] = []
         #: declared route position per kernel-batch entry, captured
         #: BEFORE the denial pass advances leg_ptr
         hops: list[int] = []
@@ -703,6 +810,10 @@ class Gateway:
             mt = (p.req.max_tokens if p.req.max_tokens is not None
                   else pool.spec.default_max_tokens)
             if row is None:
+                if tel is not None:
+                    nb_rids.append(p.req.request_id)
+                    nb_hops.append(hop)
+                    nb_toks.append(float(p.req.input_tokens + mt))
                 p.note_denial(DenyReason.NOT_BOUND, 0.0, None)
                 p.leg_ptr += 1
                 spilled.append(p)
@@ -714,6 +825,16 @@ class Gateway:
             kvs.append(float(p.req.input_tokens + mt)
                        * p.req.kv_bytes_per_token)
             eff_max.append(mt)
+        if tel is not None and nb_rids:
+            tel.record_decisions(
+                pool_name, now, nb_rids,
+                np.full(len(nb_rids), -1, np.int64),
+                np.asarray(nb_hops, np.int64),
+                np.zeros(len(nb_rids), bool),
+                np.full(len(nb_rids), 1, np.int16),   # NOT_BOUND
+                0.0, float(snap.running_min_priority)
+                * (1.0 - pool.spec.admission_slack),
+                np.asarray(nb_toks, np.float64))
         if not kernel_batch:
             return spilled
 
@@ -850,6 +971,21 @@ class Gateway:
                 p.leg_ptr += 1
                 spilled.append(p)
             pool.register_deny_batch(deny_ents, deny_demand, deny_lp)
+        if tel is not None:
+            final_reasons = np.where(
+                charged, 0,
+                np.where(admitted, 3, reasons.astype(np.int64)))
+            tel.record_decisions(
+                pool_name, now,
+                [p.req.request_id for p in kernel_batch],
+                np.asarray(rows, np.int64), np.asarray(hops, np.int64),
+                charged, final_reasons.astype(np.int16),
+                np.asarray(req_w, np.float64),
+                float(snap.running_min_priority)
+                * (1.0 - pool.spec.admission_slack),
+                tokens64,
+                levels_at=snap.bucket_level.cpu().numpy().astype(
+                    np.float64))
         return spilled
 
     def _deny_hint(self, pool: TokenPool, pool_name: str, ent: str,
@@ -899,11 +1035,30 @@ class Gateway:
 
     # -- fleet planning -----------------------------------------------------------
     def plan_quantum(self, now: float, records=None):
-        """One fleet planning round (``PoolManager.plan_quantum``) —
-        waits for the planner slice."""
-        raise NotImplementedError(
-            "Gateway.plan_quantum — the fleet planner is ROADMAP queue A, "
-            "'the planner'")
+        """Run one fleet planning round (``PoolManager.plan_quantum``)
+        and surface it in the gateway's stats store: per-pool replica
+        gauges, scale-up/down counters, and migration counters —
+        the same observability surface the admission counters use."""
+        t0 = time.perf_counter()
+        plan = self.manager.plan_quantum(now, records=records)
+        if self.telemetry is not None:
+            self.telemetry.on_plan(now, plan,
+                                   time.perf_counter() - t0)
+        for name, d in plan.decisions.items():
+            self.store.set(f"replicas:{name}", float(d.desired), now)
+        # count authorization TRANSITIONS, not convergence rounds —
+        # under provisioning lag `desired > current` repeats every
+        # plan until the replicas come live
+        for name, (old, new) in plan.scale_events.items():
+            if new > old:
+                self.store.incr(f"scale_ups:{name}", 1.0, now)
+            elif new < old:
+                self.store.incr(f"scale_downs:{name}", 1.0, now)
+        for prop in plan.applied:
+            self.store.incr(f"migrations:{prop.entitlement}", 1.0, now)
+            self.store.set(f"migrated_to:{prop.entitlement}", prop.dst,
+                           now)
+        return plan
 
     # -- completion callback ----------------------------------------------------------
     def on_complete(self, request_id: str, actual_output_tokens: int,
@@ -911,11 +1066,14 @@ class Gateway:
         settled = self.manager.on_complete(request_id,
                                            actual_output_tokens, now)
         if settled is not None:
-            _, rec = settled
+            pool_name, rec = settled
             self.store.incr(f"tokens:{rec.entitlement}",
                             float(actual_output_tokens), now)
             self.store.set(f"last_latency:{rec.entitlement}", latency_s,
                            now)
+            if self.telemetry is not None:
+                self.telemetry.record_completions(
+                    now, [pool_name], [rec.entitlement], [latency_s])
 
     @hot_path
     def on_complete_batch(self, completions: Sequence[tuple], now: float
@@ -933,8 +1091,12 @@ class Gateway:
             return
         settled = self.manager.on_complete_batch(
             [(rid, out) for rid, out, _ in completions], now)
+        tel = self.telemetry
         tokens_incr: dict = {}
         last_lat: dict = {}
+        done_pools: list[str] = []
+        done_ents: list[str] = []
+        done_lats: list[float] = []
         for (_, out, lat), res in zip(completions, settled):
             if res is None:
                 continue
@@ -942,9 +1104,18 @@ class Gateway:
             tokens_incr[f"tokens:{ent}"] = \
                 tokens_incr.get(f"tokens:{ent}", 0.0) + float(out)
             last_lat[ent] = lat
+            if tel is not None:
+                done_pools.append(res[0])
+                done_ents.append(ent)
+                done_lats.append(lat)
         self.store.incr_many(tokens_incr, now)
         for ent, lat in last_lat.items():
             self.store.set(f"last_latency:{ent}", lat, now)
+        if tel is not None and done_ents:
+            # one SLO row-op for the whole drain (per-tier latency
+            # histograms + attainment counters)
+            tel.record_completions(now, done_pools, done_ents,
+                                   done_lats)
 
     def on_failure(self, request_id: str, now: float) -> None:
         self.manager.on_evict(request_id, now)

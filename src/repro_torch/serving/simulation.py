@@ -17,9 +17,12 @@ Fixed-step simulation (dt = 20 ms): deterministic, fine enough for
 sub-second TTFT claims.  Supports: replica failure/recovery events
 (paper Exp 2's outage), entitlement join/leave windows (Exp 1/2),
 work-conserving backfill, hedged re-dispatch of stragglers, and a
-no-admission baseline mode.  The telemetry plane, the fleet planner
-(``autoscale=True``) and sharded pools wait for their slices (ROADMAP
-queue A) and raise.
+no-admission baseline mode.  ``telemetry=`` records every decision,
+completion, tick and incident into the telemetry plane; the multi-pool
+simulator's ``autoscale=True`` closes the fleet planner's loop (each
+accounting tick → ``Gateway.plan_quantum`` → provisioning with lag,
+draining, migrations).  Sharded pools (``PoolSite.shards``) wait for
+their slice (ROADMAP queue A) and raise.
 """
 from __future__ import annotations
 
@@ -165,10 +168,6 @@ class ServingSimulator:
                  fixed_avg_slo_ms: Optional[float] = None,
                  bucket_window_s: float = 4.0,
                  telemetry=None, device="cuda") -> None:
-        if telemetry is not None:
-            raise NotImplementedError(
-                "ServingSimulator(telemetry=...) — the telemetry plane is "
-                "ROADMAP queue A, 'telemetry/chaos'")
         self.dt = dt
         self.admission = admission
         self.workloads = {w.name: w for w in workloads}
@@ -213,6 +212,14 @@ class ServingSimulator:
                 self.pool.ledger.set_rate(
                     w.name, replica_tps * charge_factor, 0.0)
 
+        # telemetry=True builds a fresh plane; an instance is shared
+        if telemetry is True:
+            from repro_torch.telemetry import Telemetry
+            telemetry = Telemetry()
+        self.telemetry = telemetry or None
+        if self.telemetry is not None:
+            self.telemetry.attach_pool(self.pool)
+
         self.replicas = [ReplicaSim(f"r{i}", replica_slots, replica_tps)
                          for i in range(n_replicas)]
         self.waiting: list[tuple[float, float, str]] = []  # heap
@@ -246,6 +253,14 @@ class ServingSimulator:
             dec = self.controller.decide(AdmissionRequest(
                 entitlement=w.name, input_tokens=w.in_tokens,
                 max_tokens=w.out_tokens, arrival_s=now, request_id=rid))
+            if self.telemetry is not None:
+                from repro_torch.telemetry import flight as flightrec
+                code = (flightrec.REASON_NONE if dec.reason is None
+                        else flightrec.REASON_CODES[dec.reason.value])
+                self.telemetry.record_decision(
+                    self.pool.spec.name, now, rid, 0, w.name,
+                    dec.admitted, code, dec.priority,
+                    float(w.in_tokens + w.out_tokens))
             if not dec.admitted:
                 req.state = RequestState.DENIED
                 req.deny_reason = dec.reason.value if dec.reason else None
@@ -289,6 +304,13 @@ class ServingSimulator:
             self.pool.on_complete_batch(
                 [rid for rid, _ in done],
                 [req.max_tokens for _, req in done], now + self.dt)
+            if self.telemetry is not None:
+                name = self.pool.spec.name
+                self.telemetry.record_completions(
+                    now + self.dt, [name] * len(done),
+                    [req.entitlement for _, req in done],
+                    [now + self.dt - req.arrival_s
+                     for _, req in done])
 
     def _handle_event(self, kind: str, payload: dict, now: float) -> None:
         if kind == "fail_replica":
@@ -304,9 +326,15 @@ class ServingSimulator:
                                (-req.priority, req.arrival_s, rid))
                 del replica.active[rid]
             self.pool.set_replicas(len(self._alive()))
+            if self.telemetry is not None:
+                self.telemetry.incident_start(
+                    f"replica{payload['idx']}", now)
         elif kind == "recover_replica":
             self.replicas[payload["idx"]].alive = True
             self.pool.set_replicas(len(self._alive()))
+            if self.telemetry is not None:
+                self.telemetry.incident_end(
+                    f"replica{payload['idx']}", now)
         elif kind == "retry":
             w = self.workloads[payload["workload"]]
             if now < w.end_s:
@@ -450,18 +478,13 @@ class MultiPoolSimulator:
                  spill_policy: str = "static",
                  admission_mode: str = "quantum",
                  autoscale: bool = False,
+                 planner_config=None,
+                 provision_lag_s: float = 2.0,
+                 drain_s: float = 2.0,
                  telemetry=None, device="cuda") -> None:
-        from repro_torch.core import PoolManager
+        from repro_torch.core import FleetPlanner, PoolManager
         from repro_torch.gateway import Gateway
 
-        if autoscale:
-            raise NotImplementedError(
-                "MultiPoolSimulator(autoscale=True) — the fleet planner "
-                "is ROADMAP queue A, 'the planner'")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "MultiPoolSimulator(telemetry=...) — the telemetry plane "
-                "is ROADMAP queue A, 'telemetry/chaos'")
         if admission_mode not in ("quantum", "scalar"):
             raise ValueError(f"unknown admission_mode {admission_mode!r};"
                              " expected 'quantum' or 'scalar'")
@@ -487,6 +510,9 @@ class MultiPoolSimulator:
              for w in workloads]))
         self.charge_factor = charge_factor
 
+        self.autoscale = autoscale
+        self.provision_lag_s = provision_lag_s
+        self.drain_s = drain_s
         self.manager = PoolManager()
         self.replicas: dict[str, list[ReplicaSim]] = {}
         for s in sites:
@@ -508,11 +534,22 @@ class MultiPoolSimulator:
                 ReplicaSim(f"{s.name}/r{i}", s.replica_slots,
                            s.replica_tps, alive=i < s.n_replicas)
                 for i in range(max_r)]
+        if autoscale:
+            self.manager.planner = FleetPlanner(planner_config)
+            self.manager.provision_hook = self._provision
+        #: replicas scheduled to come live (pool → replica indices)
+        self._incoming: dict[str, set[int]] = {s.name: set() for s in sites}
+        #: per-replica drain deadline (replica name → t)
+        self._drain_deadline: dict[str, float] = {}
+        #: (t, FleetPlan) per planning round (autoscale mode)
+        self.plans: list = []
         #: per-pool (t, live_replicas) trajectory, sampled at each tick
         self.replica_timeline: dict[str, list[tuple[float, int]]] = {
             s.name: [] for s in sites}
 
-        self.gateway = Gateway(self.manager, spill_policy=spill_policy)
+        self.gateway = Gateway(self.manager, spill_policy=spill_policy,
+                               telemetry=telemetry)
+        self.telemetry = self.gateway.telemetry
         for w in workloads:
             if not w.pools:
                 raise ValueError(f"workload {w.name!r} names no pools")
@@ -581,6 +618,78 @@ class MultiPoolSimulator:
         a draining replica stops counting the moment the planner
         marks it (admission must see the post-decision capacity)."""
         self.manager.pool(pool).set_replicas(len(self._serving(pool)))
+
+    # -- provisioning-lag model (the fleet planner's provision hook) ----------
+    def _provision(self, pool, decision, now: float) -> None:
+        """Apply a ScaleDecision to the simulated fleet.
+
+        Scale-up: each missing replica becomes live ``provision_lag_s``
+        seconds from now (draining slots are un-drained first — they
+        are already warm).  Scale-down: surplus serving replicas drain
+        — no new dispatch, residual requests finish (bounded by
+        ``drain_s``, after which leftovers are re-queued) — and the
+        pool's admission capacity drops immediately."""
+        pname = pool.spec.name
+        fleet = self.replicas[pname]
+        incoming = self._incoming[pname]
+        eff = len(self._serving(pname)) + len(incoming)
+        target = decision.desired
+        if target > eff:
+            want = target - eff
+            # warm slots first: cancel drains in progress
+            for r in fleet:
+                if want <= 0:
+                    break
+                if r.alive and r.draining:
+                    r.draining = False
+                    self._drain_deadline.pop(r.name, None)
+                    want -= 1
+            for i, r in enumerate(fleet):
+                if want <= 0:
+                    break
+                if not r.alive and not r.failed and i not in incoming:
+                    incoming.add(i)
+                    self.at(now + self.provision_lag_s, "replica_live",
+                            pool=pname, idx=i)
+                    want -= 1
+        elif target < eff:
+            shrink = eff - target
+            # cancel not-yet-live arrivals first (cheapest to undo)
+            for i in sorted(incoming, reverse=True):
+                if shrink <= 0:
+                    break
+                incoming.discard(i)
+                shrink -= 1
+            serving = sorted(self._serving(pname), key=ReplicaSim.load)
+            for r in serving:
+                if shrink <= 0:
+                    break
+                r.draining = True
+                self._drain_deadline[r.name] = now + self.drain_s
+                shrink -= 1
+        self._sync_replicas(pname)
+
+    def _complete_drains(self, now: float) -> None:
+        """Retire draining replicas that emptied (or hit the drain
+        deadline — leftovers re-queue on the same pool, like a
+        failure)."""
+        for pname, fleet in self.replicas.items():
+            for r in fleet:
+                if not (r.alive and r.draining):
+                    continue
+                if r.active and now < self._drain_deadline.get(
+                        r.name, now):
+                    continue
+                for rid in list(r.active):
+                    req = self.requests[rid]
+                    req.state = RequestState.QUEUED
+                    req.replica = None
+                    heapq.heappush(self.waiting[pname],
+                                   (-req.priority, req.arrival_s, rid))
+                    del r.active[rid]
+                r.alive = False
+                r.draining = False
+                self._drain_deadline.pop(r.name, None)
 
     def _new_request(self, w: Workload, now: float) -> Request:
         self._req_counter += 1
@@ -683,11 +792,30 @@ class MultiPoolSimulator:
                                (-req.priority, req.arrival_s, rid))
                 del replica.active[rid]
             self._sync_replicas(pname)
+            if self.telemetry is not None:
+                self.telemetry.incident_start(
+                    f"{pname}/r{payload['idx']}", now)
         elif kind == "recover_replica":
             replica = self.replicas[payload["pool"]][payload["idx"]]
             replica.failed = False
             replica.alive = True
             self._sync_replicas(payload["pool"])
+            if self.telemetry is not None:
+                self.telemetry.incident_end(
+                    f"{payload['pool']}/r{payload['idx']}", now)
+        elif kind == "replica_live":
+            # provisioning completed (scheduled by ``_provision``);
+            # ignored if the planner cancelled it or the slot failed
+            pname, idx = payload["pool"], payload["idx"]
+            if idx not in self._incoming[pname]:
+                return
+            self._incoming[pname].discard(idx)
+            replica = self.replicas[pname][idx]
+            if replica.failed:
+                return
+            replica.alive = True
+            replica.draining = False
+            self._sync_replicas(pname)
         elif kind == "set_rate":
             # demand change (e.g. the experiment-3 surge): takes effect
             # from the next arrival on
@@ -734,12 +862,20 @@ class MultiPoolSimulator:
                     self._next_arrival[w.name] = 1e18
             if quantum:
                 self._arrive_batch(self._step_batch, now)
+            if self.autoscale:
+                self._complete_drains(now)
             self._dispatch(now)
             self._advance_replicas(now)
             if now >= next_tick:
                 recs = self.manager.tick(now)   # ONE batched dispatch
                 for pname, rec in recs.items():
                     self.tick_records[pname].append(rec)
+                if self.autoscale:
+                    # close the loop: tick outputs → ONE plan_fleet
+                    # call on the fleet's device → authorize/provision/
+                    # migrate
+                    plan = self.gateway.plan_quantum(now, records=recs)
+                    self.plans.append((now, plan))
                 for pname in self.replicas:
                     self.replica_timeline[pname].append(
                         (now, self.manager.pool(pname).replicas))
@@ -771,4 +907,6 @@ class MultiPoolSimulator:
             "per_pool_history": {n: list(p.history)
                                  for n, p in self.manager.pools.items()},
             "replica_timeline": self.replica_timeline,
+            "migrations": [prop for _, plan in self.plans
+                           for prop in plan.applied],
         }

@@ -137,6 +137,11 @@ def test_register_key_errors_match():
 
 
 def test_telemetry_is_refused_until_ported():
+    """The telemetry plane is ported now: ``telemetry=True`` is accepted
+    and wires every pool of the manager into one plane (its parity with
+    the reference is in ``tests/test_torch_telemetry.py``)."""
+    from repro_torch.telemetry import Telemetry
     mgr, _ = build(T, TG, 0, "static")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        TG.Gateway(mgr, telemetry=True)
+    gw = TG.Gateway(mgr, telemetry=True)
+    assert isinstance(gw.telemetry, Telemetry)
+    assert all(p.telemetry is gw.telemetry for p in mgr.pools.values())

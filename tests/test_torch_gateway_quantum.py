@@ -421,10 +421,14 @@ def test_stack_cache_reuses_in_steady_state():
 
 
 def test_planner_entry_points_raise_until_ported():
+    """The fleet planner is ported now: its entry points plan and
+    migrate (their parity with the reference is in
+    ``tests/test_torch_fleet.py``); an unknown entitlement is a
+    ``KeyError``, as in the reference."""
     mgr = T.PoolManager([mkpool(T, "a"), mkpool(T, "b")])
     gw = TG.Gateway(mgr)
-    for call in (lambda: mgr.plan_quantum(0.0),
-                 lambda: mgr.migrate_entitlement("x", "a", "b"),
-                 lambda: gw.plan_quantum(0.0)):
-        with pytest.raises(NotImplementedError, match="the planner"):
-            call()
+    assert set(mgr.plan_quantum(0.0).decisions) == {"a", "b"}
+    assert set(gw.plan_quantum(1.0).decisions) == {"a", "b"}
+    assert gw.store.get("replicas:a") == 1.0
+    with pytest.raises(KeyError):
+        mgr.migrate_entitlement("x", "a", "b")

@@ -171,9 +171,15 @@ def test_multi_pool_routing_identical(mode):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="the planner"):
-        routing_sim(T, TS, "quantum", device="cpu", autoscale=True)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        routing_sim(T, TS, "quantum", device="cpu", telemetry=True)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        TS.ServingSimulator([], telemetry=True, device="cpu")
+    """Only sharded pools still wait for their slice; the planner
+    (``autoscale=True``) and telemetry are ported (their parity is in
+    ``tests/test_torch_experiment3.py`` and ``test_torch_telemetry.py``)."""
+    sim = routing_sim(T, TS, "quantum", device="cpu", autoscale=True,
+                      telemetry=True)
+    assert sim.manager.planner is not None and sim.telemetry is not None
+    assert TS.ServingSimulator(list(sim.workloads.values()), telemetry=True,
+                               device="cpu").telemetry is not None
+    with pytest.raises(NotImplementedError, match="sharding"):
+        TS.MultiPoolSimulator(
+            sim.workloads.values(), [TS.PoolSite("east", shards=2)],
+            device="cpu")
