@@ -53,15 +53,28 @@ each reported on its own line:
    tokens as on the CPU;
 7. ``profile`` — a decode step and a prefill of 8 lanes on the same
    model, on the host clock and under ``torch.profiler`` (device time
-   by kernel).
+   by kernel);
+8. ``families`` — after the kernel report, with Qwen3-8B freed: the
+   paged kernel at the new shapes (gemma2-9b's dh 256 / G 2 with
+   window 4096 and softcap 50 over contexts 0-8,192, recurrentgemma-2b's
+   dh 256 / G 10 with window 2048, G 16 and G 8; f32 queries at dh 256)
+   and flash at dh 256 with window and softcap (S = 512 and 4,608)
+   against their plain versions; gemma2-9b and qwen3-moe-30b-a3b served
+   at full width and depth through the gateway (every request admitted,
+   flash on the route ``route()`` names, every paged launch split and
+   gemma2's local layers windowed, no plain version on CUDA tensors,
+   the MoE capacity's dropped share), one line per model; and the six
+   configs of the slice, reduced in float32, with identical greedy
+   tokens on the card and the CPU.
 
 Then a ``timer`` line gives each kernel, the kernel it replaced and the
 library call timed once more with the first port's serial timer (host
 time inside the window), one JSON line describes each kernel (launches
 on the serve path, error against the plain version, device times at
 the path's shapes of the kernel, the kernel it replaced, its plain
-version and the library call, and the card's bound for that work), and
-the last line is the result.  Any failure exits non-zero
+version and the library call, and the card's bound for that work; and
+one row per new shape of the ``families`` phase), and the last line is
+the result.  Any failure exits non-zero
 before the result line.
 """
 from __future__ import annotations
@@ -69,6 +82,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import importlib
 import json
 import re
@@ -205,6 +219,25 @@ def max_err(torch, out, ref, dtype: str) -> tuple[float, bool]:
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
+def paged_inputs(torch, g, B, H, Hkv, dh, ctxs, dtype, q_dtype=None,
+                 T=16, mp=None):
+    """Random pages and queries on the card; each lane's table (``mp``
+    pages wide, by default just wide enough) holds distinct page ids up
+    to its context and −1 after it."""
+    mp = mp or max(ctxs) // T + 1
+    P = B * mp
+    kp, vp = (torch.randn(P, T, Hkv, dh, device="cuda", generator=g)
+              .to(dtype) for _ in range(2))
+    q = torch.randn(B, H, dh, device="cuda", generator=g) \
+        .to(q_dtype or dtype)
+    bt = torch.randperm(P, device="cuda", generator=g).to(torch.int32) \
+        .reshape(B, mp)
+    for b, c in enumerate(ctxs):
+        bt[b, (c + T - 1) // T:] = -1
+    cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+    return q, kp, vp, bt, cl
+
+
 # -- phase 1 -------------------------------------------------------------------
 def phase_build() -> dict:
     from repro_torch.kernels import build
@@ -281,7 +314,6 @@ def phase_kernels(torch, seed: int) -> dict:
                      f"{max(errs):.3g} (tol {TOL[dt]}, {len(errs)} cases)")
 
     B, T, mp, dh = 8, 16, 128, 128
-    P = B * mp
     # contexts on both sides of the 64-token splits, empty to full; one
     # batch of mixed contexts; one where a whole split's pages are -1
     ctx_sets = [[c] * B for c in (0, 1, 63, 64, 65, 128, 2047)]
@@ -291,15 +323,9 @@ def phase_kernels(torch, seed: int) -> dict:
                         ("float32", "bfloat16")):
         qd, kd = getattr(torch, q_dt), getattr(torch, kv_dt)
         errs, serial_errs = [], []
-        kp = torch.randn(P, T, Hkv, dh, device="cuda", generator=g).to(kd)
-        vp = torch.randn(P, T, Hkv, dh, device="cuda", generator=g).to(kd)
         for i, ctxs in enumerate(ctx_sets):
-            q = torch.randn(B, H, dh, device="cuda", generator=g).to(qd)
-            bt = torch.randperm(P, device="cuda", generator=g) \
-                .to(torch.int32).reshape(B, mp)
-            cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
-            for b, c in enumerate(ctxs):
-                bt[b, (c + T - 1) // T:] = -1
+            q, kp, vp, bt, cl = paged_inputs(torch, g, B, H, Hkv, dh, ctxs,
+                                             kd, qd, T, mp)
             if i == len(ctx_sets) - 1:
                 bt[:, 4:8] = -1               # tokens 64-127: one split
             outs = [paged_decode_attention(q, kp, vp, bt, cl)]
@@ -325,18 +351,11 @@ def phase_kernels(torch, seed: int) -> dict:
     # the other head widths and group sizes the split kernel takes
     # (the reduced model of the serve phase has dh 16, G 2)
     ctxs = ctx_sets[-2]
-    cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
     for dt in ("float32", "bfloat16"):
         errs = []
         for dh_, (h, hkv) in ((16, (4, 2)), (32, (8, 1)), (64, (4, 4))):
-            kp, vp = (torch.randn(P, T, hkv, dh_, device="cuda", generator=g)
-                      .to(getattr(torch, dt)) for _ in range(2))
-            q = torch.randn(B, h, dh_, device="cuda", generator=g) \
-                .to(getattr(torch, dt))
-            bt = torch.randperm(P, device="cuda", generator=g) \
-                .to(torch.int32).reshape(B, mp)
-            for b, c in enumerate(ctxs):
-                bt[b, (c + T - 1) // T:] = -1
+            q, kp, vp, bt, cl = paged_inputs(torch, g, B, h, hkv, dh_, ctxs,
+                                             getattr(torch, dt), T=T, mp=mp)
             out = paged_decode_attention(q, kp, vp, bt, cl)
             torch.cuda.synchronize()
             ref = reference_paged_attention(q, kp, vp, bt, cl)
@@ -1624,6 +1643,548 @@ def phase_small_reference(torch, np, seed: int) -> None:
           "cpu (plain versions)")
 
 
+# -- phase 8 -----------------------------------------------------------------------
+#: the slice's new kernel shapes: (label, H, H_kv, dh, window, softcap,
+#: contexts of the 8 lanes per batch); 16-token pages, bf16
+FAMILY_PAGED_CASES = [
+    ("gemma2-9b local", 16, 8, 256, 4096, 50.0,
+     [[0, 1, 63, 64, 4095, 4096, 4097, 4160],
+      [6000, 8192, 0, 4096, 4097, 1, 8192, 6000]]),
+    ("gemma2-9b global", 16, 8, 256, None, 50.0,
+     [[0, 1, 63, 64, 4095, 4096, 4097, 4160]]),
+    ("recurrentgemma-2b local", 10, 1, 256, 2048, None,
+     [[0, 1, 63, 64, 2047, 2048, 2049, 4000]]),
+    ("qwen3-moe-235b-a22b", 64, 4, 128, None, None,
+     [[0, 1, 63, 64, 65, 128, 2047, 1000]]),
+    ("qwen3-moe-30b-a3b", 32, 4, 128, None, None,
+     [[0, 1, 63, 64, 65, 128, 2047, 1000]]),
+]
+#: (atol, rtol) of the families kernel checks in bf16: an output
+#: averaged over ~4,096 random keys is ~0.03, so TOL["bfloat16"] would
+#: pass a window off by a whole 64-token chunk (a change of ~1e-3-4e-2);
+#: the sound kernels stay within a bf16 rounding of the plain versions
+TOL_FAMILIES = (2e-3, 2e-2)
+#: the six configurations this slice adds
+FAMILY_ARCHS = ("deepseek-7b", "tinyllama-1.1b", "gemma2-2b", "gemma2-9b",
+                "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b")
+
+
+def limit_ratio(out, ref, atol: float, rtol: float) -> float:
+    """Largest |out − ref| / (atol + rtol·|ref|): within the limit
+    where it is at most 1."""
+    o, r = out.float(), ref.float()
+    return float(((o - r).abs() / (atol + rtol * r.abs())).max())
+
+
+def family_kernel_checks(torch, seed: int) -> dict:
+    """The paged kernel at the slice's new shapes (bf16, windows, G 10
+    and 16, dh 256) and flash at dh 256 with a window and a softcap,
+    each against its plain version at ``TOL_FAMILIES``; the serial
+    baseline at the new widths and groups (it has no window).  Each
+    windowed case also runs the kernel with its window 64 tokens (one
+    chunk) too long and too short, and that wrong output must fail the
+    same check.  Returns the max error per case."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, reference_attention)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_serial, paged_decode_attention,
+        reference_paged_attention)
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    errs, lines = {}, []
+    sound, wrong = [], []
+
+    def hold(out, ref, what):
+        err = float((out.float() - ref.float()).abs().max())
+        ratio = limit_ratio(out, ref, *TOL_FAMILIES)
+        check(ratio <= 1, f"families {what}: max |err| {err}, "
+                          f"{ratio:.3g} x the limit {TOL_FAMILIES}")
+        sound.append(ratio)
+        return err
+
+    def off_by_a_chunk(fn, ref, window, what):
+        for shift in (-64, 64):
+            ratio = limit_ratio(fn(window + shift), ref, *TOL_FAMILIES)
+            check(ratio > 1, f"families {what}: the kernel with window "
+                             f"{window + shift} passes the check at window "
+                             f"{window} ({ratio:.3g} x the limit)")
+            wrong.append(ratio)
+
+    for label, H, Hkv, dh, window, cap, batches in FAMILY_PAGED_CASES:
+        worst = worst_serial = 0.0
+        for ctxs in batches:
+            q, kp, vp, bt, cl = paged_inputs(torch, g, 8, H, Hkv, dh, ctxs,
+                                             torch.bfloat16)
+            out = paged_decode_attention(q, kp, vp, bt, cl, softcap=cap,
+                                         window=window)
+            torch.cuda.synchronize()
+            ref = reference_paged_attention(q, kp, vp, bt, cl, softcap=cap,
+                                            window=window)
+            worst = max(worst, hold(out, ref, f"paged {label} ctx={ctxs}"))
+            zero = [b for b, c in enumerate(ctxs) if c == 0]
+            check(not out[zero].float().abs().sum().item(),
+                  f"families paged {label}: context 0 must give zeros")
+            if window is None:
+                out = paged_attention_serial(q, kp, vp, bt, cl, softcap=cap)
+                torch.cuda.synchronize()
+                worst_serial = max(worst_serial, hold(
+                    out, ref, f"serial {label} ctx={ctxs}"))
+            else:
+                off_by_a_chunk(lambda w: paged_decode_attention(
+                    q, kp, vp, bt, cl, softcap=cap, window=w), ref, window,
+                    f"paged {label} ctx={ctxs}")
+        errs[label] = worst
+        lines.append(f"paged {label} (dh {dh}, G {H // Hkv}, window "
+                     f"{window}, softcap {cap}) max|err| {worst:.3g}"
+                     + (f", serial {worst_serial:.3g}" if window is None
+                        else ""))
+    # the f32 and f32-over-bf16 entries at dh 256 with a window (the
+    # small-model check runs f32 at dh 16)
+    for q_dt, kv_dt in (("float32", "float32"), ("float32", "bfloat16")):
+        ctxs = [0, 1, 63, 64, 2047, 2048, 2049, 4000]
+        q, kp, vp, bt, cl = paged_inputs(
+            torch, g, 8, 10, 1, 256, ctxs, getattr(torch, kv_dt),
+            getattr(torch, q_dt))
+        out = paged_decode_attention(q, kp, vp, bt, cl, window=2048)
+        torch.cuda.synchronize()
+        ref = reference_paged_attention(q, kp, vp, bt, cl, window=2048)
+        what = f"paged q {q_dt} pages {kv_dt} dh 256 G 10 window 2048"
+        if kv_dt == "float32":
+            err, ok = max_err(torch, out, ref, "float32")
+            check(ok, f"families {what}: max |err| {err}")
+        else:
+            err = hold(out, ref, what)
+        lines.append(f"{what} max|err| {err:.3g}")
+    # flash at gemma2-9b's width: scalar route, causal, window, softcap
+    before = dict(flash_attention.route_launches)
+    for S in (512, 4608):
+        q, k, v = (torch.randn(1, S, h, 256, device="cuda", generator=g)
+                   .to(torch.bfloat16).transpose(1, 2) for h in (16, 8, 8))
+        out = flash_attention(q, k, v, causal=True, window=4096,
+                              softcap=50.0)
+        torch.cuda.synchronize()
+        ref = reference_attention(q, k, v, causal=True, window=4096,
+                                  softcap=50.0)
+        errs[f"flash S={S}"] = hold(out, ref, f"flash dh 256 S={S}")
+        if S > 4096:                       # the window cuts in
+            off_by_a_chunk(lambda w: flash_attention(
+                q, k, v, causal=True, window=w, softcap=50.0), ref, 4096,
+                f"flash dh 256 S={S}")
+        del ref
+        lines.append(f"flash bf16 dh 256 S={S} window 4096 softcap 50 "
+                     f"max|err| {errs[f'flash S={S}']:.3g}")
+    took = [r for r, n in flash_attention.route_launches.items()
+            if n > before[r]]
+    check(took == ["scalar"], f"families flash dh 256 took {took}")
+    print(f"families kernels: within |err| <= {TOL_FAMILIES[0]} + "
+          f"{TOL_FAMILIES[1]}·|ref| of the plain versions on the card "
+          f"(largest reading {max(sound):.3g} of the limit); every window "
+          f"off by 64 tokens either way fails it (smallest reading "
+          f"{min(wrong):.3g} of the limit, {len(wrong)} runs); "
+          + "; ".join(lines))
+    return errs
+
+
+def busy_share(torch, fn):
+    """(device ms of the kernels, wall ms) of one call under
+    ``torch.profiler``; None where it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA) / 1e3
+    return (dev, wall) if dev > 0 else None
+
+
+def family_workload(np, seed: int, vocab: int, long_prompts: bool):
+    """12 prompts of 32-512 tokens, and 4 more: of 4,160-4,608 tokens
+    (``long_prompts``) or of 32-512; tenants alternate, one arrival every
+    0.25 simulated seconds, the long ones at positions 3, 7, 11, 15."""
+    r = np.random.default_rng(seed)
+    lens = list(r.integers(32, 513, 12))
+    extra = r.integers(4160, 4609, 4) if long_prompts \
+        else r.integers(32, 513, 4)
+    for j, n in enumerate(extra):
+        lens.insert(4 * j + 3, n)
+    return [(f"r{i}", "prod" if i % 2 == 0 else "batch",
+             r.integers(0, vocab, int(n)).tolist(), 0.25 * i)
+            for i, n in enumerate(lens)]
+
+
+def serve_family(torch, np, seed: int, arch: str, max_seq: int,
+                 long_prompts: bool, max_tokens: int = 32):
+    """One full-width model through TokenPool → Gateway → InferenceEngine
+    on the card (8 slots, 16-token pages, the pool given the KV bytes of
+    the engine's page pool), with every kernel launch counted and plain
+    versions on CUDA tensors refused.  Returns what the report needs."""
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_gateway
+    from repro_torch.models import build_model, param_count
+    from repro_torch.models import moe as moe_mod
+    fa_mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
+    slots, page = 8, 16
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+
+    prefill_ms, decode_ms, busy = [], [], {}
+    # flash launches by prompt length: up to 512 tokens, and longer
+    flash_by_len = {"short": 0, "long": 0}
+
+    def timed_prefill(*a, **kw):
+        n0 = fa_mod.flash_attention.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model.prefill(*a, **kw)
+        torch.cuda.synchronize()
+        S = a[1].shape[1]
+        prefill_ms.append((S, 1e3 * (time.perf_counter() - t)))
+        flash_by_len["long" if S > 512 else "short"] += \
+            fa_mod.flash_attention.launches - n0
+        return out
+
+    def timed_decode(*a, **kw):
+        # each step with more lanes than any before it runs under the
+        # profiler instead (not timed); the last is the busiest step
+        B = a[1].shape[0]
+        if B > busy.get("lanes", 0):
+            res = {}
+            busy["lanes"] = B
+            busy["share"] = busy_share(
+                torch, lambda: res.setdefault("out",
+                                              model.decode_step(*a, **kw)))
+            return res["out"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model.decode_step(*a, **kw)
+        torch.cuda.synchronize()
+        decode_ms.append((B, 1e3 * (time.perf_counter() - t)))
+        return out
+
+    plain_on_cuda = {"flash": 0, "paged": 0}
+
+    def guard(fn, key):
+        def wrapped(q, *a, **kw):
+            plain_on_cuda[key] += int(q.is_cuda)
+            return fn(q, *a, **kw)
+        return wrapped
+
+    # the share of MoE assignments dropped by the reference's capacity,
+    # at prefill (T = prompt) and at decode (T = lanes)
+    drops = {"prefill": [0, 0], "decode": [0, 0]}
+    dispatch = moe_mod._dispatch_indices
+
+    def counted_dispatch(ids, E, C):
+        perm, dst, keep = dispatch(ids, E, C)
+        key = "decode" if ids.shape[0] <= slots * cfg.experts_per_token \
+            else "prefill"
+        drops[key][0] += ids.shape[0]
+        drops[key][1] += (~keep).sum()
+        return perm, dst, keep
+
+    saved = (fa_mod.reference_attention, pa_mod.reference_paged_attention)
+    fa_mod.reference_attention = guard(saved[0], "flash")
+    pa_mod.reference_paged_attention = guard(saved[1], "paged")
+    moe_mod._dispatch_indices = counted_dispatch
+    try:
+        max_pages = max_seq // page + 1
+        kv_bytes = slots * max_pages * page * cfg.kv_bytes_per_token
+        pool, gw = build_gateway(cfg, slots, max_tokens, "cuda",
+                                 kv_bytes=kv_bytes)
+        eng = serving.InferenceEngine(
+            dataclasses.replace(model, prefill=timed_prefill,
+                                decode_step=timed_decode), params,
+            slots=slots, max_seq=max_seq, gateway=gw, page_tokens=page)
+        spec = family_workload(np, seed + 5, cfg.vocab_size, long_prompts)
+        for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
+            fn.launches = 0
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+        pa_mod.paged_attention.windowed_launches = 0
+        reqs = drive(torch, eng, pool, serving, spec, max_tokens)
+        routes = {"flash": dict(fa_mod.flash_attention.route_launches),
+                  "paged": dict(pa_mod.paged_attention.route_launches),
+                  "paged windowed": pa_mod.paged_attention.windowed_launches}
+        launches = {"flash": fa_mod.flash_attention.launches,
+                    "paged": pa_mod.paged_attention.launches}
+    finally:
+        fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
+        moe_mod._dispatch_indices = dispatch
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    fin = [r for r in reqs if r.state.value == "finished"]
+    check(len(fin) == len(reqs), f"families {arch}: "
+          f"{len(reqs) - len(fin)} requests not admitted or not finished "
+          f"({sorted({r.state.value for r in reqs})})")
+    for r in fin:
+        check(len(r.output_tokens) == max_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.output_tokens),
+              f"families {arch}: {r.request_id} gave "
+              f"{len(r.output_tokens)} tokens or ids outside the vocabulary")
+    fa_route = fa_mod.route(torch.bfloat16, cfg.head_dim)
+    check(routes["flash"][fa_route] == launches["flash"]
+          == len(fin) * cfg.num_layers,
+          f"families {arch}: flash launches {routes['flash']} for "
+          f"{len(fin)} prompts x {cfg.num_layers} layers, route {fa_route}")
+    n_local = sum(k == "local" for k in cfg.pattern) * cfg.n_periods
+    check(routes["paged"]["split"] == launches["paged"] > 0,
+          f"families {arch}: paged launches off the split kernel {routes}")
+    check(routes["paged windowed"] * cfg.num_layers
+          == launches["paged"] * n_local,
+          f"families {arch}: {routes['paged windowed']} windowed of "
+          f"{launches['paged']} paged launches; {n_local} of "
+          f"{cfg.num_layers} layers are local")
+    check(not any(plain_on_cuda.values()),
+          f"families {arch}: plain versions on CUDA tensors {plain_on_cuda}")
+    # a fresh prompt's logits through the engine's pages are finite
+    kv = eng.kv_pages
+    kv.allocate("probe", 40)
+    table = torch.from_numpy(kv.block_table("probe", eng.max_pages)[None]) \
+        .to("cuda")
+    logits = model.prefill(params, torch.tensor([spec[0][2][:40]],
+                                                device="cuda"),
+                           eng.cache, table)
+    kv.free("probe")
+    check(tuple(logits.shape) == (1, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+          f"families {arch}: logits not finite or of the wrong shape")
+
+    short = [ms for s, ms in prefill_ms if s <= 512]
+    longs = [(s, ms) for s, ms in prefill_ms if s > 512]
+    dec_tok = sum(b for b, _ in decode_ms)
+    dec_s = sum(ms for _, ms in decode_ms) / 1e3
+    by_lanes = {}
+    for b, ms in decode_ms:
+        by_lanes.setdefault(b, []).append(ms)
+    dev_wall = busy.get("share")
+    drop_txt = ""
+    if cfg.is_moe:
+        drop_txt = "; MoE assignments dropped by capacity " + ", ".join(
+            f"{k} {int(d)}/{n} ({100 * int(d) / max(n, 1):.1f} %)"
+            for k, (n, d) in drops.items())
+    print(
+        f"families {arch}: full width and depth ({cfg.num_layers} layers, "
+        f"d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"dh={cfg.head_dim}, d_ff={cfg.d_ff}"
+        + (f" x {cfg.num_experts} experts top-{cfg.experts_per_token}"
+           if cfg.is_moe else "")
+        + (f", window {cfg.window_size}" if n_local else "")
+        + f", vocab {cfg.vocab_size}), {n_params / 1e9:.3f} B params "
+        f"{cfg.dtype}, init {init_s:.1f} s; slots {slots}, max_seq "
+        f"{max_seq}, pool KV {kv_bytes / 1e9:.2f} GB; admitted "
+        f"{len(fin)}/{len(reqs)}; prefill ms: {len(short)} prompts of "
+        f"32-512 tokens mean {sum(short) / max(len(short), 1):.2f}"
+        + "".join(f", {s} tokens {ms:.2f}" for s, ms in longs)
+        + f"; decode {dec_tok / max(dec_s, 1e-9):.1f} tok/s ({dec_tok} "
+        f"tokens in {dec_s:.2f} s of decode steps; mean step ms by lanes "
+        + ", ".join(f"{b}: {sum(v) / len(v):.2f}"
+                    for b, v in sorted(by_lanes.items()))
+        + f"); device busy in a {busy.get('lanes')}-lane decode step (the "
+        f"most lanes of the run) "
+        + (f"{dev_wall[0]:.2f} of {dev_wall[1]:.2f} ms "
+           f"({100 * dev_wall[0] / dev_wall[1]:.0f} %)" if dev_wall
+           else "not measured (no device time recorded)")
+        + f"; peak memory {peak_gb:.2f} GB; launches by route {routes}; "
+        f"plain calls on CUDA {plain_on_cuda}" + drop_txt)
+    ctx = [len(r.prompt_tokens) + max_tokens // 2 for r in fin[:slots]]
+    return {"launches": launches, "routes": routes,
+            "flash_by_len": flash_by_len, "cfg": cfg, "ctx": ctx,
+            "prompts": [len(s[2]) for s in spec]}
+
+
+def family_small_reference(torch, np, seed: int) -> None:
+    """Each of the slice's six configurations, reduced and in float32,
+    served on the card (kernels) and on the CPU (plain versions):
+    identical greedy tokens."""
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_gateway
+    from repro_torch.models import Runtime, build_model
+    parts = []
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch).reduced(dtype="float32", max_seq_len=256)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(seed), "cpu")
+        spec = workload(np, seed + 2, 6, cfg.vocab_size)
+        spec = [(rid, ten, p[:int(np.clip(len(p) // 4, 3, 120))], t)
+                for rid, ten, p, t in spec]
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            pool, gw = build_gateway(cfg, 4, 12, dev)
+            eng = serving.InferenceEngine(
+                model, copy.deepcopy(params).to(dev), slots=4,
+                max_seq=cfg.max_seq_len, gateway=gw,
+                rt=Runtime(kv_cache_dtype="float32"))
+            reqs = drive(torch, eng, pool, serving, spec, 12)
+            outs[dev] = [(r.request_id, r.state.value,
+                          list(r.output_tokens)) for r in reqs]
+        check(outs["cuda"] == outs["cpu"],
+              f"families reference: reduced {arch} gave different greedy "
+              "tokens on the card and on the CPU")
+        parts.append(f"{arch} {sum(len(o[2]) for o in outs['cpu'])}")
+    print("families reference: reduced float32 configs, greedy tokens "
+          "identical on cuda (kernels) and cpu (plain versions): "
+          + ", ".join(parts))
+
+
+def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
+    """Kernel JSON rows at the slice's new shapes: device ms (median of
+    30 after an L2 flush; of 10 for the plain versions and at S =
+    4,608), plain version, SDPA and the card's bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, reference_attention)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, reference_paged_attention)
+    timer = Timer(torch)
+    # the plain versions launch ~50 kernels a call: 10 calls keep the
+    # launch queue from filling while the device waits
+    plain_timer = Timer(torch, iters=10)
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    bf16 = torch.bfloat16
+    rows = []
+    gem, moe_ = served["gemma2-9b"], served["qwen3-moe-30b-a3b"]
+
+    def paged_row(name, label, H, Hkv, dh, ctx, window, cap, launches,
+                  note):
+        q, kp, vp, bt, cl = paged_inputs(torch, g, len(ctx), H, Hkv, dh,
+                                         ctx, bf16)
+        B = len(ctx)
+        live = [min(c, window or c) for c in ctx]
+        nbytes = 2.0 * (2 * B * H * dh + 2 * sum(live) * Hkv * dh) \
+            + 4.0 * (bt.numel() + B)
+        flops = 4.0 * H * dh * sum(live)
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        t_bytes = nbytes / HBM_BYTES_S
+        # SDPA over each lane's live keys, gathered dense (not timed),
+        # without the softcap, which SDPA does not take
+        K = max(live)
+        idx = torch.stack([torch.arange(c - l, c - l + K, device="cuda")
+                           .clamp(max=max(c - 1, 0)) for c, l in
+                           zip(ctx, live)])                     # (B, K)
+        pages = bt.long().gather(1, (idx // 16).clamp(max=bt.shape[1] - 1))
+        slot = idx % 16
+        dk = kp[pages.clamp_min(0), slot].transpose(1, 2)
+        dv = vp[pages.clamp_min(0), slot].transpose(1, 2)
+        mask = (torch.arange(K, device="cuda")[None, :]
+                < torch.tensor(live, device="cuda")[:, None])
+        mask = mask[:, None, None, :]
+        qs = q[:, :, None, :]
+        return {
+            "name": name, "route": "cuda", "source": PAGED_SRC,
+            "replaces": PAGED_TPU, "launches": launches,
+            "max_abs_err": errs[label],
+            "ms": timer.ms(lambda: paged_decode_attention(
+                q, kp, vp, bt, cl, softcap=cap, window=window)),
+            "plain_ms": plain_timer.ms(lambda: reference_paged_attention(
+                q, kp, vp, bt, cl, softcap=cap, window=window)),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qs, dk, dv, attn_mask=mask, enable_gqa=True)),
+            "shape": f"B={B} H={H} H_kv={Hkv} dh={dh} T=16 ctx={ctx} "
+                     f"window={window} softcap={cap} bf16; {note}"}
+
+    windowed = gem["routes"]["paged windowed"]
+    rows.append(paged_row(
+        "paged_decode_window", "gemma2-9b local", 16, 8, 256, gem["ctx"],
+        4096, 50.0, windowed,
+        "gemma2-9b local layers at the serve run's contexts; launches: "
+        "the windowed ones of that run; library: SDPA over the live "
+        "window"))
+    rows.append(paged_row(
+        "paged_decode_dh256", "gemma2-9b global", 16, 8, 256, gem["ctx"],
+        None, 50.0, gem["launches"]["paged"] - windowed,
+        "gemma2-9b global layers; launches: the unwindowed ones of the "
+        "gemma2-9b serve run"))
+    rows.append(paged_row(
+        "paged_decode_g8", "qwen3-moe-30b-a3b", 32, 4, 128, moe_["ctx"],
+        None, None, moe_["launches"]["paged"],
+        "qwen3-moe-30b-a3b at its serve run's contexts"))
+    far = [4000, 3000, 2500, 2100, 2048, 1000, 300, 64]
+    rows.append(paged_row(
+        "paged_decode_g10_window", "recurrentgemma-2b local", 10, 1, 256,
+        far, 2048, None, 0,
+        "recurrentgemma-2b's shape; no served path runs it (its rglru "
+        "layers are not ported), so 0 launches"))
+    rows.append(paged_row(
+        "paged_decode_g16", "qwen3-moe-235b-a22b", 64, 4, 128, far, None,
+        None, 0,
+        "qwen3-moe-235b-a22b's shape; no served path runs it (470 GB of "
+        "weights are not served at full width), so 0 launches"))
+
+    # flash at gemma2-9b's width, scalar route, the long prompt
+    for S in (512, 4608):
+        q, k, v = (torch.randn(1, S, h, 256, device="cuda", generator=g)
+                   .to(bf16).transpose(1, 2) for h in (16, 8, 8))
+        pairs = sum(min(i + 1, 4096) for i in range(S))
+        flops = 4.0 * 16 * 256 * pairs
+        nbytes = 2.0 * (2 * 16 + 2 * 8) * S * 256
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        t_bytes = nbytes / HBM_BYTES_S
+        o = torch.empty_like(q)
+        qp = torch.arange(S, device="cuda")
+        mask = (qp[None, :] <= qp[:, None]) & (qp[:, None] - qp[None, :]
+                                               < 4096)
+        t = plain_timer if S > 512 else timer
+        rows.append({
+            "name": f"flash_prefill_dh256_s{S}", "route": "cuda",
+            "source": FLASH_SRC, "replaces": FLASH_TPU,
+            "launches": gem["flash_by_len"]["long" if S > 512
+                                            else "short"],
+            "max_abs_err": errs[f"flash S={S}"],
+            "ms": t.ms(lambda: flash_attention(q, k, v, causal=True,
+                                               window=4096, softcap=50.0,
+                                               out=o)),
+            "plain_ms": plain_timer.ms(lambda: reference_attention(
+                q, k, v, causal=True, window=4096, softcap=50.0)),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": t.ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)),
+            "shape": f"B=1 H=16 H_kv=8 S={S} dh=256 bf16 causal window "
+                     "4096 softcap 50, scalar route (f32 FMAs; the bound "
+                     "is at the bf16 tensor-core peak); launches: the "
+                     "gemma2-9b serve run's flash launches on prompts of "
+                     + ("4,160-4,608 tokens" if S > 512 else "32-512 tokens")
+                     + "; library: SDPA with the window as a mask, no "
+                     "softcap"})
+    return rows
+
+
+def phase_families(torch, np, seed: int) -> list:
+    """The slice's kernel shapes, gemma2-9b and qwen3-moe-30b-a3b served
+    at full width and depth, and the six reduced configs card = CPU.
+    Returns the kernel JSON rows of the new shapes."""
+    errs = family_kernel_checks(torch, seed)
+    served = {}
+    served["gemma2-9b"] = serve_family(torch, np, seed, "gemma2-9b",
+                                       max_seq=4736, long_prompts=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    served["qwen3-moe-30b-a3b"] = serve_family(
+        torch, np, seed, "qwen3-moe-30b-a3b", max_seq=1024,
+        long_prompts=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_small_reference(torch, np, seed)
+    return family_kernel_rows(torch, seed, errs, served)
+
+
 # -- kernel report ----------------------------------------------------------------
 def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     """Times of each kernel, of the kernel it replaced (``previous_ms``),
@@ -1682,15 +2243,8 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     ctx = served["fin_ctx"]
     B, T = len(ctx), 16
     mp = 2048 // T + 1
-    P = B * mp
-    kp = torch.randn(P, T, Hkv, dh, device="cuda", generator=g).to(bf16)
-    vp = torch.randn(P, T, Hkv, dh, device="cuda", generator=g).to(bf16)
-    qd = torch.randn(B, H, dh, device="cuda", generator=g).to(bf16)
-    bt = torch.randperm(P, device="cuda", generator=g).to(torch.int32) \
-        .reshape(B, mp)
-    for b, c in enumerate(ctx):
-        bt[b, (c + T - 1) // T:] = -1
-    cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    qd, kp, vp, bt, cl = paged_inputs(torch, g, B, H, Hkv, dh, ctx, bf16,
+                                      T=T, mp=mp)
     live = sum(ctx)
     nbytes = 2.0 * (2 * B * H * dh + 2 * live * Hkv * dh) \
         + 4.0 * (bt.numel() + B)
@@ -1784,6 +2338,9 @@ def main(argv=None) -> int:
         phase = "kernel report"
         report = kernel_report(torch, args.seed, served, errs)
         report.append(admit_report)
+        served.clear()                    # free Qwen3-8B for the next phase
+        phase = "families"
+        report.extend(phase_families(torch, np, args.seed))
         card = card_line()
     except Exception:                     # noqa: BLE001 — report and fail
         traceback.print_exc()

@@ -1,14 +1,20 @@
 """Architecture configs of the port.
 
 ``get_config(name)`` accepts the same ids as ``repro.configs``; the port
-holds the architectures its model stack runs so far (the dense
-attention family).
+holds the architectures its model stack runs so far (the attention
+families: dense global-only, gemma2's local/global, and MoE).
 """
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "gemma2-9b": "gemma2_9b",
+    "deepseek-7b": "deepseek_7b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "gemma2-2b": "gemma2_2b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-8b": "qwen3_8b",          # the paper's serving model
 }
 

@@ -1,0 +1,18 @@
+"""deepseek-7b [dense] — llama-arch [arXiv:2401.02954; hf]."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-7b",
+    family="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=102400,
+    max_seq_len=32768,
+    pattern=("global",),
+    mlp_kind="swiglu",
+    source="arXiv:2401.02954; hf",
+)

@@ -23,24 +23,40 @@
 // FLOP/byte ridge, so it is bound by memory bandwidth (3.35 TB/s): the
 // design puts as many independent 16-byte loads in flight as it can.
 //
-// Pass 1 (paged_split_kernel), grid (H_kv, B, n_split): each CTA of 4
-// warps takes one chunk of 64 tokens (pps = 64 / T pages; one page when
-// T > 64) of one (sequence, kv head).  n_split comes from the block
-// table's width, so the host never reads context_lens; a CTA whose chunk
-// starts at or past the context exits at once.  The CTA reads its pps
-// table entries once, then each warp issues all the 16-byte K and V row
-// loads of its 16 tokens before any math (for bf16 at dh = 128 one
-// warp-load covers two token rows, 16 lanes each).  The G query heads
-// sit in f32 registers and each K row is used for all of them; a score
-// is reduced over the row's lanes with shuffles.  The chunk's partial
-// (m, l, acc[G][dh]) goes to f32 scratch.
-// Pass 2 (paged_merge_kernel), grid (H_kv, B): reads the ceil(ctx / 64)
-// partials of its (sequence, kv head), rescales them to a common max,
-// sums and divides, and writes q's dtype; context 0 gives zeros.
+// Pass 1 (paged_split_kernel), grid (H_kv * n_tiles, B, n_split): each
+// CTA of 4 warps takes one chunk of 64 tokens (pps = 64 / T pages; one
+// page when T > 64) of one (sequence, kv head) for one tile of the
+// group's query heads.  n_split comes from the block table's width, so
+// the host never reads context_lens; a CTA whose chunk starts at or past
+// the context, or ends at or before the window's first live token,
+// exits at once.  The CTA reads its pps table entries once, then each
+// warp issues all the 16-byte K and V row loads of its 16 tokens before
+// any math (for bf16 at dh = 128 one warp-load covers two token rows, 16
+// lanes each; at dh = 256 one row is a whole warp).  The tile's GT query
+// heads sit in f32 registers and each K row is used for all of them; a
+// score is reduced over the row's lanes with shuffles.  The chunk's
+// partial (m, l, acc[GT][dh]) goes to f32 scratch.
+// The group G = H / H_kv is taken at run time in tiles of GT heads, GT
+// the largest of 8, 4, 2, 1 that divides G (G 10 → 5 tiles of 2, G 16 →
+// 2 tiles of 8), so q and acc never hold more than 8 heads a lane (at
+// dh 256 and GT 8, 64 + 64 floats, as at dh 128) and only the tile
+// widths are templates.  A tile re-reads its chunk's K/V (from L2 after
+// the first tile): bytes, not correctness.
+// Window: with window w > 0 a token at position k_pos of a sequence of
+// context ctx is live when ctx − w ≤ k_pos < ctx (the reference's
+// decode mask cur − k_pos < w, cur = ctx − 1).  Pages stay allocated
+// behind the window (every layer shares one block table); the kernel
+// only skips them.
+// Pass 2 (paged_merge_kernel), grid (H_kv, B): reads the partials of the
+// chunks pass 1 wrote, from the window's first chunk to ceil(ctx / 64),
+// rescales them to a common max, sums and divides, and writes q's
+// dtype; context 0 gives zeros.
 //
 // paged_decode_serial_bf16 keeps the first kernel of this port — one CTA
 // per (sequence, kv head) walking its pages in series — as the baseline
-// that the split kernel's time is compared with.  It is on no path.
+// that the split kernel's time is compared with.  It is on no path.  It
+// takes dh and G at run time (any width and group that fit its shared
+// memory) and has no window.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,6 +89,7 @@ namespace split {
 
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 64;                  // tokens per CTA for pages <= 64
+constexpr int MAX_GROUP = 16;              // query heads per kv head
 
 // 16 bytes of a K or V row as f32
 __device__ __forceinline__ void unpack(const uint4& r, float* f,
@@ -95,35 +112,40 @@ __device__ __forceinline__ void unpack(const uint4& r, float* f, float) {
 // q (B, H, dh); pages (P, T, H_kv, dh); block_tables (B, max_pages) int32
 // padded with -1; context_lens (B,) int32.  Partials: acc
 // (B, H_kv, n_split, G, DH) and ml (B, H_kv, n_split, G, 2) f32, m in
-// log2 units.
-template <typename TQ, typename TKV, int DH, int G>
+// log2 units.  This CTA serves query heads [tile·GT, tile·GT + GT) of
+// its kv head's group.
+template <typename TQ, typename TKV, int DH, int GT>
 __global__ void __launch_bounds__(THREADS)
 paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                    const TKV* __restrict__ vp,
                    const int* __restrict__ block_tables,
                    const int* __restrict__ context_lens,
                    float* __restrict__ part_acc, float* __restrict__ part_ml,
-                   int Hkv, int T, int max_pages, int pps, float softcap,
-                   float scale) {
+                   int Hkv, int G, int T, int max_pages, int pps, int window,
+                   float softcap, float scale) {
   constexpr int VEC = 16 / sizeof(TKV);       // elements per 16-byte load
   constexpr int LOADS = DH / VEC;             // 16-byte loads per row
   constexpr int L = LOADS < 32 ? LOADS : 32;  // lanes per row
   constexpr int NV = LOADS / L;               // loads per lane per row
   constexpr int RPL = 32 / L;                 // rows per warp-load
-  constexpr int STEPS = G >= 8 ? 4 : 8;       // warp-loads in flight
+  constexpr int STEPS = (GT >= 8 ? 4 : 8) / NV;  // warp-loads in flight
   constexpr int BT = STEPS * RPL;             // tokens per warp batch
   constexpr int NE = NV * VEC;                // elements per lane per row
   static_assert(DH % VEC == 0 && 32 % L == 0, "head width");
 
   __shared__ int spage[CHUNK];
-  __shared__ float wml[WARPS][G][2];
-  __shared__ float wacc[WARPS][G][DH];
+  __shared__ float wml[WARPS][GT][2];
+  __shared__ float wacc[WARPS][GT][DH];
 
-  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int n_tiles = G / GT;
+  const int hk = blockIdx.x / n_tiles, g0 = blockIdx.x % n_tiles * GT;
+  const int b = blockIdx.y, sp = blockIdx.z;
   const int ctx = context_lens[b];
+  const int lo = window > 0 ? max(0, ctx - window) : 0;  // first live token
   const int chunk = pps * T;
   const int t0 = sp * chunk;
-  if (t0 >= ctx) return;                      // uniform: nothing to read
+  // uniform: nothing to read (past the context, or behind the window)
+  if (t0 >= ctx || t0 + chunk <= lo) return;
   const int t1 = min(ctx, t0 + chunk);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int sub = lane % L;                   // position along the row
@@ -135,20 +157,21 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   }
 
   const int H = Hkv * G;
-  float qr[G][NE];
+  float qr[GT][NE];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < GT; ++g)
 #pragma unroll
     for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
         qr[g][n * VEC + e] = to_f32(
-            q[((long long)b * H + hk * G + g) * DH + (n * L + sub) * VEC + e]);
+            q[((long long)b * H + hk * G + g0 + g) * DH + (n * L + sub) * VEC +
+              e]);
   __syncthreads();                            // spage ready
 
-  float m[G], l[G], acc[G][NE];
+  float m[GT], l[GT], acc[GT][NE];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GT; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
@@ -156,7 +179,8 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   }
 
   const long long tok_stride = (long long)Hkv * DH;   // one token row
-  for (int base = t0 + warp * BT; base < t1; base += WARPS * BT) {
+  const int ts = max(t0, lo);                 // the chunk's first live token
+  for (int base = ts + warp * BT; base < t1; base += WARPS * BT) {
     // every K and V load of the batch first
     uint4 kr[STEPS][NV], vr[STEPS][NV];
     bool ok[STEPS];
@@ -179,14 +203,14 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
     }
 
     // scores, in log2 units, reduced over the L lanes of each row
-    float s[STEPS][G];
+    float s[STEPS][GT];
 #pragma unroll
     for (int st = 0; st < STEPS; ++st) {
       float kf[NE];
 #pragma unroll
       for (int n = 0; n < NV; ++n) unpack(kr[st][n], kf + n * VEC, TKV());
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GT; ++g) {
         float part = 0.f;
 #pragma unroll
         for (int e = 0; e < NE; ++e) part = fmaf(qr[g][e], kf[e], part);
@@ -201,7 +225,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 
     // online update with the warp's max over the batch
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GT; ++g) {
       float mx = -INFINITY;
 #pragma unroll
       for (int st = 0; st < STEPS; ++st) mx = fmaxf(mx, s[st][g]);
@@ -235,7 +259,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 
   // the warp's acc: sum the rows of the warp-load, lanes 0..L-1 hold it
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < GT; ++g)
 #pragma unroll
     for (int e = 0; e < NE; ++e)
 #pragma unroll
@@ -243,7 +267,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
   if (lane < L) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int g = 0; g < GT; ++g)
 #pragma unroll
       for (int n = 0; n < NV; ++n)
 #pragma unroll
@@ -252,7 +276,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   }
   if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GT; ++g) {
       wml[warp][g][0] = m[g];
       wml[warp][g][1] = l[g];
     }
@@ -261,7 +285,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 
   // the CTA's partial: the warps rescaled to their common max
   const long long pidx = ((long long)b * Hkv + hk) * gridDim.z + sp;
-  for (int i = tid; i < G * DH; i += THREADS) {
+  for (int i = tid; i < GT * DH; i += THREADS) {
     const int g = i / DH, d = i % DH;
     float mx = -INFINITY;
 #pragma unroll
@@ -274,10 +298,10 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
       a = fmaf(f, wacc[w][g][d], a);
       ls = fmaf(f, wml[w][g][1], ls);
     }
-    part_acc[pidx * G * DH + i] = a;
+    part_acc[(pidx * G + g0) * DH + i] = a;
     if (d == 0) {
-      part_ml[(pidx * G + g) * 2 + 0] = mx;
-      part_ml[(pidx * G + g) * 2 + 1] = ls;
+      part_ml[(pidx * G + g0 + g) * 2 + 0] = mx;
+      part_ml[(pidx * G + g0 + g) * 2 + 1] = ls;
     }
   }
 }
@@ -288,20 +312,24 @@ __global__ void __launch_bounds__(THREADS)
 paged_merge_kernel(const float* __restrict__ part_acc,
                    const float* __restrict__ part_ml,
                    const int* __restrict__ context_lens, TQ* __restrict__ o,
-                   int Hkv, int G, int dh, int chunk, int n_split) {
+                   int Hkv, int G, int dh, int chunk, int n_split,
+                   int window) {
   const int hk = blockIdx.x, b = blockIdx.y;
   const int ctx = context_lens[b];
+  // the chunks pass 1 wrote: from the one holding the window's first
+  // live token to the one holding the last
+  const int s0 = window > 0 ? max(0, ctx - window) / chunk : 0;
   const int ns = min(n_split, (ctx + chunk - 1) / chunk);
   const long long p0 = ((long long)b * Hkv + hk) * n_split;
   TQ* ob = o + ((long long)b * Hkv + hk) * G * dh;
   for (int i = threadIdx.x; i < G * dh; i += THREADS) {
     const int g = i / dh;
     float mx = -INFINITY;
-    for (int s = 0; s < ns; ++s)
+    for (int s = s0; s < ns; ++s)
       mx = fmaxf(mx, part_ml[((p0 + s) * G + g) * 2]);
     const float base_g = mx == -INFINITY ? 0.f : mx;
     float a = 0.f, ls = 0.f;
-    for (int s = 0; s < ns; ++s) {
+    for (int s = s0; s < ns; ++s) {
       const float f = exp2f(part_ml[((p0 + s) * G + g) * 2] - base_g);
       a = fmaf(f, part_acc[(p0 + s) * G * dh + i], a);
       ls = fmaf(f, part_ml[((p0 + s) * G + g) * 2 + 1], ls);
@@ -313,73 +341,83 @@ paged_merge_kernel(const float* __restrict__ part_acc,
 // pages per CTA: 64 tokens, or one page when pages are longer
 inline int pages_per_split(int T) { return T < CHUNK ? CHUNK / T : 1; }
 
-template <typename TQ, typename TKV, int DH, int G>
+template <typename TQ, typename TKV, int DH, int GT>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
                      const void* bt, const void* cl, void* o, float* part,
-                     int B, int Hkv, int T, int max_pages, float softcap,
-                     float scale, cudaStream_t stream) {
+                     int B, int Hkv, int G, int T, int max_pages, int window,
+                     float softcap, float scale, cudaStream_t stream) {
   const int pps = pages_per_split(T);
   const int n_split = (max_pages + pps - 1) / pps;
   float* part_ml = part + (size_t)B * Hkv * n_split * G * DH;
-  paged_split_kernel<TQ, TKV, DH, G>
-      <<<dim3(Hkv, B, n_split), THREADS, 0, stream>>>(
+  paged_split_kernel<TQ, TKV, DH, GT>
+      <<<dim3(Hkv * (G / GT), B, n_split), THREADS, 0, stream>>>(
           static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
           static_cast<const TKV*>(vp), static_cast<const int*>(bt),
-          static_cast<const int*>(cl), part, part_ml, Hkv, T, max_pages, pps,
-          softcap, scale);
+          static_cast<const int*>(cl), part, part_ml, Hkv, G, T, max_pages,
+          pps, window, softcap, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_merge_kernel<TQ><<<dim3(Hkv, B), THREADS, 0, stream>>>(
       part, part_ml, static_cast<const int*>(cl), static_cast<TQ*>(o), Hkv,
-      G, DH, pps * T, n_split);
+      G, DH, pps * T, n_split, window);
   return cudaGetLastError();
+}
+
+// heads per tile: the largest of 8, 4, 2, 1 that divides the group
+inline int group_tile(int G) {
+  return G % 8 == 0 ? 8 : G % 4 == 0 ? 4 : G % 2 == 0 ? 2 : 1;
 }
 
 template <typename TQ, typename TKV, int DH>
 cudaError_t launch_dh(const void* q, const void* kp, const void* vp,
                       const void* bt, const void* cl, void* o, float* part,
                       int B, int Hkv, int G, int T, int max_pages,
-                      float softcap, float scale, cudaStream_t stream) {
-  switch (G) {
+                      int window, float softcap, float scale,
+                      cudaStream_t stream) {
+  switch (group_tile(G)) {
     case 1: return launch_g<TQ, TKV, DH, 1>(q, kp, vp, bt, cl, o, part, B,
-                                            Hkv, T, max_pages, softcap,
-                                            scale, stream);
+                                            Hkv, G, T, max_pages, window,
+                                            softcap, scale, stream);
     case 2: return launch_g<TQ, TKV, DH, 2>(q, kp, vp, bt, cl, o, part, B,
-                                            Hkv, T, max_pages, softcap,
-                                            scale, stream);
+                                            Hkv, G, T, max_pages, window,
+                                            softcap, scale, stream);
     case 4: return launch_g<TQ, TKV, DH, 4>(q, kp, vp, bt, cl, o, part, B,
-                                            Hkv, T, max_pages, softcap,
-                                            scale, stream);
-    case 8: return launch_g<TQ, TKV, DH, 8>(q, kp, vp, bt, cl, o, part, B,
-                                            Hkv, T, max_pages, softcap,
-                                            scale, stream);
-    default: return cudaErrorInvalidValue;
+                                            Hkv, G, T, max_pages, window,
+                                            softcap, scale, stream);
+    default: return launch_g<TQ, TKV, DH, 8>(q, kp, vp, bt, cl, o, part, B,
+                                             Hkv, G, T, max_pages, window,
+                                             softcap, scale, stream);
   }
 }
 
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* kp, const void* vp,
            const void* bt, const void* cl, void* o, void* part, int B,
-           int H, int Hkv, int T, int dh, int max_pages, float softcap,
-           float scale, void* stream) {
+           int H, int Hkv, int T, int dh, int max_pages, int window,
+           float softcap, float scale, void* stream) {
   if (B == 0 || max_pages == 0) return cudaSuccess;
   const int G = H / Hkv;
+  if (G < 1 || G > MAX_GROUP || G * Hkv != H)
+    return static_cast<int>(cudaErrorInvalidValue);
   float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dh) {
     case 16: err = launch_dh<TQ, TKV, 16>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                          G, T, max_pages, softcap, scale,
-                                          s); break;
+                                          G, T, max_pages, window, softcap,
+                                          scale, s); break;
     case 32: err = launch_dh<TQ, TKV, 32>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                          G, T, max_pages, softcap, scale,
-                                          s); break;
+                                          G, T, max_pages, window, softcap,
+                                          scale, s); break;
     case 64: err = launch_dh<TQ, TKV, 64>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                          G, T, max_pages, softcap, scale,
-                                          s); break;
+                                          G, T, max_pages, window, softcap,
+                                          scale, s); break;
     case 128: err = launch_dh<TQ, TKV, 128>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                            G, T, max_pages, softcap, scale,
-                                            s); break;
+                                            G, T, max_pages, window, softcap,
+                                            scale, s); break;
+    case 256: err = launch_dh<TQ, TKV, 256>(q, kp, vp, bt, cl, o, p, B, Hkv,
+                                            G, T, max_pages, window, softcap,
+                                            scale, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -537,29 +575,30 @@ int launch(const void* q, const void* kp, const void* vp,
 
 // The split-K entries.  `part` is f32 scratch of
 // B * H_kv * n_split * G * (dh + 2) floats, n_split = ceil(max_pages /
-// pps), pps = 64 / T for T < 64 else 1.  dh in {16, 32, 64, 128}, G = H /
-// H_kv in {1, 2, 4, 8}.  softcap <= 0 means no cap.  Both passes launch
-// on `stream`; returns cudaGetLastError() after them.
+// pps), pps = 64 / T for T < 64 else 1.  dh in {16, 32, 64, 128, 256},
+// G = H / H_kv in 1..16.  window <= 0 means no window; softcap <= 0
+// means no cap.  Both passes launch on `stream`; returns
+// cudaGetLastError() after them.
 extern "C" int paged_decode_f32(const void* q, const void* kp,
                                 const void* vp, const void* block_tables,
                                 const void* context_lens, void* o,
                                 void* part, int B, int H, int Hkv, int T,
-                                int dh, int max_pages, float softcap,
-                                float scale, void* stream) {
+                                int dh, int max_pages, int window,
+                                float softcap, float scale, void* stream) {
   return split::launch<float, float>(q, kp, vp, block_tables, context_lens,
                                      o, part, B, H, Hkv, T, dh, max_pages,
-                                     softcap, scale, stream);
+                                     window, softcap, scale, stream);
 }
 
 extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  const void* vp, const void* block_tables,
                                  const void* context_lens, void* o,
                                  void* part, int B, int H, int Hkv, int T,
-                                 int dh, int max_pages, float softcap,
-                                 float scale, void* stream) {
+                                 int dh, int max_pages, int window,
+                                 float softcap, float scale, void* stream) {
   return split::launch<__nv_bfloat16, __nv_bfloat16>(
       q, kp, vp, block_tables, context_lens, o, part, B, H, Hkv, T, dh,
-      max_pages, softcap, scale, stream);
+      max_pages, window, softcap, scale, stream);
 }
 
 // f32 query (and output) over bf16 pages.
@@ -569,11 +608,11 @@ extern "C" int paged_decode_f32_bf16(const void* q, const void* kp,
                                      const void* context_lens, void* o,
                                      void* part, int B, int H, int Hkv,
                                      int T, int dh, int max_pages,
-                                     float softcap, float scale,
+                                     int window, float softcap, float scale,
                                      void* stream) {
   return split::launch<float, __nv_bfloat16>(
       q, kp, vp, block_tables, context_lens, o, part, B, H, Hkv, T, dh,
-      max_pages, softcap, scale, stream);
+      max_pages, window, softcap, scale, stream);
 }
 
 // The serial baseline, bf16 only (the serve path's types).

@@ -8,6 +8,6 @@ from repro_torch.kernels.paged_attention.paged_attention import (
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables,
-                           context_lens, *, softcap=None):
+                           context_lens, *, softcap=None, window=None):
     return paged_attention(q, k_pages, v_pages, block_tables,
-                           context_lens, softcap=softcap)
+                           context_lens, softcap=softcap, window=window)

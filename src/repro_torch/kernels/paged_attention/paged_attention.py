@@ -6,10 +6,11 @@ Replaces the Pallas TPU kernel
 The kernel (``csrc/paged_attention.cu``, whose header says what bounds
 it on the H100 and how the design answers) is flash-decoding in two
 passes launched by one C entry: pass 1 gives each (kv head, sequence,
-chunk of 64 tokens) a CTA that serves the G = H / H_kv query heads of
-the group from one read of the chunk's pages, skipping −1 entries and
-tokens past the context, and writes a partial (m, l, acc); pass 2
-merges a sequence's partials.  The number of chunks comes from the
+chunk of 64 tokens, tile of up to 8 of the G = H / H_kv query heads
+of the group) a CTA that serves the tile's heads from one read of the
+chunk's pages, skipping −1 entries, tokens past the context and tokens
+behind the window, and writes a partial (m, l, acc); pass 2 merges a
+sequence's partials.  The number of chunks comes from the
 block table's width, so no context length is read to the host.
 
 :func:`paged_attention` dispatches on the device of its inputs: CPU
@@ -17,9 +18,23 @@ tensors take :func:`reference_paged_attention`, CUDA tensors launch the
 kernel or raise.  ``paged_attention.launches`` counts kernel launches
 (one per call, both passes), ``paged_attention.route_launches`` those of
 the split kernel and of :func:`paged_attention_serial`, the first,
-serial kernel kept as the split kernel's timing baseline.
-:func:`reference_paged_attention_split` is a plain mirror of the split
-kernel's arithmetic (per-chunk partials, then the merge).
+serial kernel kept as the split kernel's timing baseline (any dh and G,
+no window), and ``paged_attention.windowed_launches`` the split
+launches that had a window.  :func:`reference_paged_attention_split`
+is a plain mirror of the split kernel's arithmetic (per-chunk partials,
+then the merge).
+
+Sliding window (gemma2's ``local`` layers): with ``window=w`` a token at
+position ``k_pos`` of a sequence of context ``ctx`` is live when
+``ctx − w ≤ k_pos < ctx``, the reference's decode mask ``cur − k_pos <
+w`` with ``cur = ctx − 1`` (``repro/models/attention.py``).  The pages
+behind the window stay allocated: every layer of a model shares one
+block table per sequence (``models/transformer.py``), so a local layer
+skips those pages (pass 1's CTAs behind the window exit at once and
+pass 2 starts at the window's first chunk) but cannot free them.  That
+matches what the token pool charges, ``kv_bytes_per_token`` over all
+attention layers for the whole context.  The TPU kernel has no window;
+the reference windows its dense decode.
 
 Inputs:
   q            (B, H, dh)           one decode token per sequence
@@ -30,8 +45,8 @@ Inputs:
 Output: (B, H, dh) in q's dtype; q may be float32 over bfloat16 pages,
 as the TPU kernel allows.  A sequence with ``context_lens == 0`` gets
 zeros, as the TPU kernel gives (its ``ref.py`` would average V
-instead).  The kernel takes dh in {16, 32, 64, 128} and G in
-{1, 2, 4, 8}.
+instead).  The kernel takes dh in {16, 32, 64, 128, 256} and every G
+from 1 to 16 (in tiles of up to 8 query heads); other shapes raise.
 """
 from __future__ import annotations
 
@@ -46,13 +61,14 @@ from repro_torch.kernels import build
 NEG_INF = -2.38e38
 #: tokens of one split of the page list (one page when pages are longer)
 CHUNK_TOKENS = 64
-HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: G = H / H_kv from 1 to this
+MAX_GROUP = 16
 #: (q dtype, page dtype) → C entry point
 _ENTRY = {(torch.float32, torch.float32): "paged_decode_f32",
           (torch.bfloat16, torch.bfloat16): "paged_decode_bf16",
           (torch.float32, torch.bfloat16): "paged_decode_f32_bf16"}
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _SERIAL_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
@@ -63,10 +79,11 @@ def pages_per_split(page_tokens: int) -> int:
     return max(1, CHUNK_TOKENS // page_tokens)
 
 
-def _dense(q, k_pages, v_pages, block_tables, context_lens):
+def _dense(q, k_pages, v_pages, block_tables, context_lens, window=None):
     """Pages gathered per sequence: k, v (B, max_pages·T, H, dh) in f32
     with the kv heads repeated over each group, and the (B, max_pages·T)
-    mask of live tokens (before the context, on a page that is not −1)."""
+    mask of live tokens (before the context, inside the window, on a
+    page that is not −1)."""
     B, H, dh = q.shape
     P, T, H_kv, _ = k_pages.shape
     max_pages = block_tables.shape[1]
@@ -78,8 +95,10 @@ def _dense(q, k_pages, v_pages, block_tables, context_lens):
     v = v.repeat_interleave(group, dim=2).float()
     pos = torch.arange(max_pages * T, device=q.device)[None, :]
     page_ok = (block_tables >= 0)[:, :, None].expand(B, max_pages, T)
-    mask = (pos < context_lens[:, None].long()) \
-        & page_ok.reshape(B, max_pages * T)
+    ctx = context_lens[:, None].long()
+    mask = (pos < ctx) & page_ok.reshape(B, max_pages * T)
+    if window is not None:
+        mask = mask & (pos >= ctx - window)
     return k, v, mask
 
 
@@ -92,11 +111,12 @@ def _scores(q, k, softcap):
 
 
 def reference_paged_attention(q, k_pages, v_pages, block_tables,
-                              context_lens, *, softcap=None):
+                              context_lens, *, softcap=None, window=None):
     """Plain version (transcribes ``ref.py``, with the kernel's zero
-    output where no slot is valid): gathers pages into a dense KV per
-    sequence and runs masked softmax attention in f32."""
-    k, v, mask = _dense(q, k_pages, v_pages, block_tables, context_lens)
+    output where no slot is valid, and the window): gathers pages into a
+    dense KV per sequence and runs masked softmax attention in f32."""
+    k, v, mask = _dense(q, k_pages, v_pages, block_tables, context_lens,
+                        window)
     s = _scores(q, k, softcap)
     s = torch.where(mask[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -106,15 +126,19 @@ def reference_paged_attention(q, k_pages, v_pages, block_tables,
 
 
 def reference_paged_attention_split(q, k_pages, v_pages, block_tables,
-                                    context_lens, *, softcap=None):
+                                    context_lens, *, softcap=None,
+                                    window=None):
     """Plain mirror of the split kernel: each chunk of
     ``pages_per_split(T)`` pages gives a partial (m, l, acc) over its
-    live tokens (m = −inf, l = 0, acc = 0 where it has none), and the
+    live tokens (m = −inf, l = 0, acc = 0 where it has none: past the
+    context, behind the window, or on −1 pages; the kernel writes no
+    partial for the first two and its merge skips them), and the
     partials merge as ``Σ e^(m_c − M) acc_c / Σ e^(m_c − M) l_c`` with
     M the largest m; no live token → 0."""
     B, H, dh = q.shape
     T = k_pages.shape[1]
-    k, v, mask = _dense(q, k_pages, v_pages, block_tables, context_lens)
+    k, v, mask = _dense(q, k_pages, v_pages, block_tables, context_lens,
+                        window)
     s = torch.where(mask[:, None, :], _scores(q, k, softcap), -math.inf)
     chunk = pages_per_split(T) * T
     n = -(-s.shape[-1] // chunk)
@@ -156,7 +180,7 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, out) -> None:
 
 
 def _launch(q, k_pages, v_pages, block_tables, context_lens, out,
-            softcap) -> None:
+            softcap, window) -> None:
     _check(q, k_pages, v_pages, block_tables, context_lens, out)
     B, H, dh = q.shape
     P, T, H_kv, _ = k_pages.shape
@@ -164,9 +188,12 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, out,
     if entry is None:
         raise ValueError(f"paged_attention: no kernel for {q.dtype} "
                          f"queries over {k_pages.dtype} pages")
-    if dh not in HEAD_DIMS or H // H_kv not in GROUPS:
+    if dh not in HEAD_DIMS or not 1 <= H // H_kv <= MAX_GROUP:
         raise ValueError(f"paged_attention: no kernel for head width {dh} "
-                         f"and group {H // H_kv}")
+                         f"and group {H // H_kv} (widths {HEAD_DIMS}, "
+                         f"groups 1-{MAX_GROUP})")
+    if window is not None and window < 1:
+        raise ValueError(f"paged_attention: window {window} must be >= 1")
     max_pages = block_tables.shape[1]
     n_split = -(-max_pages // pages_per_split(T))
     part = torch.empty(B * H_kv * n_split * (H // H_kv) * (dh + 2),
@@ -175,23 +202,28 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, out,
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), context_lens.data_ptr(),
              out.data_ptr(), part.data_ptr(), B, H, H_kv, T, dh, max_pages,
-             float(softcap or 0.0), 1.0 / math.sqrt(dh),
+             int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention")
     paged_attention.launches += 1
     paged_attention.route_launches["split"] += 1
+    paged_attention.windowed_launches += int(window is not None)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     context_lens: torch.Tensor, *,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """(B,H,dh) decode attention over the paged pool, in q's dtype."""
+                    softcap: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """(B,H,dh) decode attention over the paged pool, in q's dtype;
+    ``window`` keeps the last ``window`` tokens of each context."""
     if not q.is_cuda:
         return reference_paged_attention(q, k_pages, v_pages, block_tables,
-                                         context_lens, softcap=softcap)
+                                         context_lens, softcap=softcap,
+                                         window=window)
     out = torch.empty_like(q)
-    _launch(q, k_pages, v_pages, block_tables, context_lens, out, softcap)
+    _launch(q, k_pages, v_pages, block_tables, context_lens, out, softcap,
+            window)
     return out
 
 
@@ -199,7 +231,8 @@ def paged_attention_serial(q, k_pages, v_pages, block_tables, context_lens,
                            *, softcap=None) -> torch.Tensor:
     """The first kernel of the port (one CTA per (sequence, kv head),
     pages in series), bfloat16 on CUDA only: the baseline that
-    ``chip_smoke.py`` times beside the split kernel.  No path calls it."""
+    ``chip_smoke.py`` times beside the split kernel.  It takes dh and G
+    at run time and has no window.  No path calls it."""
     out = torch.empty_like(q)
     _check(q, k_pages, v_pages, block_tables, context_lens, out)
     if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16:
@@ -221,3 +254,5 @@ def paged_attention_serial(q, k_pages, v_pages, block_tables, context_lens,
 
 paged_attention.launches = 0
 paged_attention.route_launches = {"split": 0, "serial": 0}
+#: split launches with a window (local layers)
+paged_attention.windowed_launches = 0

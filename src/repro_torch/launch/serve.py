@@ -31,14 +31,17 @@ from repro_torch.serving import InferenceEngine, Request
 from repro_torch.serving.request import latency_summary
 
 
-def build_gateway(cfg, slots: int, max_tokens: int,
-                  device="cuda") -> tuple[TokenPool, Gateway]:
+def build_gateway(cfg, slots: int, max_tokens: int, device="cuda",
+                  kv_bytes: float = float(1 << 30)
+                  ) -> tuple[TokenPool, Gateway]:
     """The two-tenant pool behind a gateway: ``prod`` (GUARANTEED) and
     ``batch`` (SPOT, with a pre-funded budget), keys ``k-prod`` and
-    ``k-batch``.  The pool's control tick runs on ``device``."""
+    ``k-batch``.  The replica holds ``kv_bytes`` of KV (1 GiB unless
+    the caller gives the engine's page pool).  The pool's control tick
+    runs on ``device``."""
     spec = PoolSpec(name=cfg.name, model=cfg.name,
                     scaling=ScalingBounds(1, 1),
-                    per_replica=Resources(2e4, float(1 << 30),
+                    per_replica=Resources(2e4, float(kv_bytes),
                                           float(slots)),
                     default_max_tokens=max_tokens)
     pool = TokenPool(spec, device=device)

@@ -1,5 +1,5 @@
-"""Model stack of the port: the dense attention family on a paged KV
-cache (counterpart of ``repro.models``)."""
+"""Model stack of the port: the attention families (dense and MoE) on a
+paged KV cache (counterpart of ``repro.models``)."""
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import Model, build_model, param_count
 from repro_torch.models.runtime import LOCAL, Runtime

@@ -1,7 +1,8 @@
-"""Attention over a paged KV cache: GQA with RoPE and logit
-soft-capping; prefill writes the sequence's pages and attends through
-the flash-prefill kernel, decode writes one slot per sequence and
-attends through the paged-decode kernel.
+"""Attention over a paged KV cache: GQA with RoPE, full or
+sliding-window causal masks and logit soft-capping; prefill writes the
+sequence's pages and attends through the flash-prefill kernel, decode
+writes one slot per sequence and attends through the paged-decode
+kernel.
 
 Counterpart of ``repro/models/attention.py``.  The reference engine
 decodes on a dense per-lane cache; here the KV of every layer lives in
@@ -11,8 +12,10 @@ walks.  Both kernels dispatch on the tensors' device: CUDA tensors go
 through the hand-written kernels, CPU tensors through their plain
 versions.
 
-``local`` (sliding-window) layers are not supported yet: the paged
-decode kernel has no window (ROADMAP queue A, 'other model families').
+``local`` layers (gemma2) pass ``cfg.window_size`` to both kernels.
+The reference keeps a ring buffer of ``window`` slots for them; here
+they write the same pages as global layers (one block table serves
+every layer) and the paged kernel skips the pages behind the window.
 
 Shapes: activations (B, S, d); q/k/v (B, S, H, dh).
 """
@@ -39,11 +42,8 @@ def init_attention(gen: torch.Generator, cfg, dtype, device) -> dict:
     }
 
 
-def _check_kind(kind: str) -> None:
-    if kind != "global":
-        raise NotImplementedError(
-            f"attention kind {kind!r}: the paged decode kernel has no "
-            "sliding window yet (ROADMAP queue A, 'other model families')")
+def _window(cfg, kind: str):
+    return cfg.window_size if kind == "local" else None
 
 
 def _project(params, x: torch.Tensor, positions: torch.Tensor, cfg):
@@ -72,7 +72,6 @@ def prefill_attention(params, x: torch.Tensor, cfg, kind: str,
     j of sequence b lands in slot ``(block_tables[b, j // T], j % T)``
     of the page pools (updated in place).  Attention runs on the fresh
     (un-rounded) k/v, as the reference does."""
-    _check_kind(kind)
     B, S, _ = x.shape
     T = k_pages.shape[1]
     positions = torch.arange(S, device=x.device)
@@ -81,7 +80,7 @@ def prefill_attention(params, x: torch.Tensor, cfg, kind: str,
     slots = (positions % T).expand(B, S)
     k_pages[pages, slots] = k.to(k_pages.dtype)
     v_pages[pages, slots] = v.to(v_pages.dtype)
-    o = flash_attention_bshd(q, k, v, causal=True,
+    o = flash_attention_bshd(q, k, v, causal=True, window=_window(cfg, kind),
                              softcap=cfg.attn_logit_softcap)
     return _out(params, o)
 
@@ -93,8 +92,8 @@ def decode_attention(params, x: torch.Tensor, cfg, kind: str,
     """One-token decode: x (B, 1, d), sequence b's new token at
     ``positions[b]``.  Writes its K/V into slot
     ``(block_tables[b, pos // T], pos % T)`` and attends over the
-    ``pos + 1`` tokens of the sequence's pages."""
-    _check_kind(kind)
+    ``pos + 1`` tokens of the sequence's pages (the last ``window`` of
+    them on a local layer)."""
     T = k_pages.shape[1]
     pos = positions.long()
     q, k, v = _project(params, x, pos[:, None], cfg)
@@ -104,5 +103,5 @@ def decode_attention(params, x: torch.Tensor, cfg, kind: str,
     o = paged_decode_attention(
         q[:, 0].contiguous(), k_pages, v_pages,
         block_tables, (pos + 1).to(torch.int32),
-        softcap=cfg.attn_logit_softcap)
+        softcap=cfg.attn_logit_softcap, window=_window(cfg, kind))
     return _out(params, o[:, None])

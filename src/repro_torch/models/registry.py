@@ -9,7 +9,9 @@ the engine programs against:
     init_cache(total_pages, page_tokens, rt, device)   → PagedKVCache
 
 ``params`` is the :class:`~repro_torch.models.transformer.Transformer`
-module that ``init`` or ``params_from_jax`` returns.
+module that ``init`` or ``params_from_jax`` returns; :func:`param_count`
+counts every weight, the MoE layers' router and all their experts
+included (not the active parameters of a token).
 
 Counterpart of ``repro/models/registry.py``, with a paged cache in
 place of the dense per-lane one.

@@ -1,5 +1,6 @@
-"""Decoder-only transformer trunk (dense attention family) as
-``nn.Module``s, serving over a paged KV cache.
+"""Decoder-only transformer trunk (the attention families: dense, with
+global and sliding-window layers, and MoE) as ``nn.Module``s, serving
+over a paged KV cache.
 
 Counterpart of ``repro/models/transformer.py``.  The reference stacks
 each pattern position's parameters across periods and scans them with
@@ -14,9 +15,16 @@ Entry points, matching the serving split:
 
 The KV cache (:class:`PagedKVCache`) is one ``(P, T, H_kv, dh)`` K page
 pool and one V page pool per layer; sequences address them through
-``KVBlockManager`` block tables.  MoE MLPs, recurrent kinds (rglru,
-mlstm, slstm), encoder-decoder and VLM stacks are not ported yet
-(ROADMAP queue A, 'other model families').
+``KVBlockManager`` block tables; every layer, global or local, uses the
+same table (a local layer's kernel skips the pages behind its window).
+
+Families that run: dense global-only stacks (qwen3-8b, deepseek-7b,
+tinyllama-1.1b), gemma2's alternating local/global layers with post
+norms and both softcaps (gemma2-2b, gemma2-9b), and MoE MLPs
+(qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), whose MLP runs on the
+(B·S, d) tokens as the reference's ``_apply_mlp`` flattens them.
+Recurrent kinds (rglru, mlstm, slstm), encoder-decoder and VLM stacks
+are not ported yet (ROADMAP queue A, 'other model families').
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     dtype_of,
@@ -47,8 +56,6 @@ def check_supported(cfg: ArchConfig) -> None:
     todo = "ROADMAP queue A, 'other model families'"
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"encdec ({cfg.name}): {todo}")
-    if cfg.is_moe:
-        raise NotImplementedError(f"moe MLP ({cfg.name}): {todo}")
     if cfg.num_vision_tokens:
         raise NotImplementedError(f"VLM frontend ({cfg.name}): {todo}")
     for kind in layer_kinds(cfg):
@@ -71,9 +78,10 @@ def _params(weights: dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One residual attention + dense-MLP layer.  ``ln*`` are the
-    gemma-style rmsnorm scales; ``attn`` holds wq/wk/wv/wo and ``mlp``
-    the MLP's matrices, in the reference's shapes."""
+    """One residual attention + MLP layer.  ``ln*`` are the gemma-style
+    rmsnorm scales; ``attn`` holds wq/wk/wv/wo, and ``mlp`` the dense
+    MLP's matrices or ``moe`` the router (f32) and the stacked experts,
+    in the reference's shapes."""
 
     def __init__(self, kind: str, weights: dict) -> None:
         super().__init__()
@@ -81,7 +89,11 @@ class Block(nn.Module):
         self.ln1 = _param(weights["ln1"])
         self.attn = _params(weights["attn"])
         self.ln2 = _param(weights["ln2"])
-        self.mlp = _params(weights["mlp"])
+        self.is_moe = "moe" in weights
+        if self.is_moe:
+            self.moe = _params(weights["moe"])
+        else:
+            self.mlp = _params(weights["mlp"])
         self.post_norm = "post_ln1" in weights
         if self.post_norm:
             self.post_ln1 = _param(weights["post_ln1"])
@@ -95,7 +107,13 @@ class Block(nn.Module):
         if self.post_norm:
             y = rmsnorm(self.post_ln1, y)
         x = x + y
-        y = mlp(self.mlp, rmsnorm(self.ln2, x), cfg.mlp_kind)
+        y = rmsnorm(self.ln2, x)
+        if self.is_moe:
+            B, S, d = y.shape
+            y = moe_lib.moe_mlp(self.moe, y.reshape(B * S, d), cfg) \
+                .reshape(B, S, d)
+        else:
+            y = mlp(self.mlp, y, cfg.mlp_kind)
         if self.post_norm:
             y = rmsnorm(self.post_ln2, y)
         return x + y
@@ -133,8 +151,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
             "ln1": torch.zeros(d, device=device),
             "attn": attn.init_attention(gen, cfg, dtype, device),
             "ln2": torch.zeros(d, device=device),
-            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device),
         }
+        if cfg.is_moe:
+            layer["moe"] = moe_lib.init_moe(gen, cfg, dtype, device)
+        else:
+            layer["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                    device)
         if cfg.use_post_norm:
             layer["post_ln1"] = torch.zeros(d, device=device)
             layer["post_ln2"] = torch.zeros(d, device=device)
@@ -151,7 +173,8 @@ def params_from_jax(cfg: ArchConfig, np_params: dict,
     port's :class:`Transformer`.  Stacked ``periods["k{j}"]`` leaves
     unstack along their leading axis into layers ``p·|pattern| + j``;
     ``tail{j}`` follows; rmsnorm ``{"scale": s}`` dicts become the
-    tensor ``s``."""
+    tensor ``s``.  A ``moe`` subtree comes across as it is, its router
+    in float32."""
     check_supported(cfg)
 
     def conv(tree, idx=None):

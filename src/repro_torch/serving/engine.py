@@ -16,6 +16,18 @@ The KV lives in the page pools the block tables index — one
 decode kernel reads it there; prefill attends through the flash-prefill
 kernel.  On CUDA both are the hand-written kernels, on the CPU their
 plain versions (the device of the params decides).
+
+Idle lanes (fault C9, in the reference).  The reference engine decodes
+all ``slots`` lanes every step, idle ones included with their stale
+token and position; this engine decodes the active lanes only.  For a
+dense model the two are equal lane by lane.  For MoE they are not: the
+expert capacity ``C = max(1, int(T·k/E·cf))`` depends on the token
+count T, and the dispatch's stable sort gives an expert's slots to the
+lower lanes first, so in the reference a finished request's stale lane
+takes expert capacity from the live lanes above it.  Copying that would
+mean decoding stale lanes over a stale cache; the port keeps the
+active-lane decode, and equals the reference wherever every lane is
+active (``tests/test_torch_families.py`` shows both sides).
 """
 from __future__ import annotations
 

@@ -141,13 +141,21 @@ def test_engine_matches_reference(models, seed, tps, evict):
     assert flash_attention.launches == 0 and paged_attention.launches == 0
 
 
-def test_serve_launcher_prints_the_same(monkeypatch, capsys):
+@pytest.mark.parametrize("arch", [
+    pytest.param(None, id="default-qwen3-8b"), "deepseek-7b",
+    "tinyllama-1.1b", "gemma2-2b", "gemma2-9b", "qwen3-moe-30b-a3b",
+    "qwen3-moe-235b-a22b"])
+def test_serve_launcher_prints_the_same(monkeypatch, capsys, arch):
+    """The default arch (qwen3-8b) and each arch of the slice: 16
+    requests on 4 slots in full waves, so no lane is idle during a
+    decode (the engines differ there for MoE: fault C9)."""
     from repro.launch import serve as jax_serve
     from repro_torch.launch import serve as port_serve
-    monkeypatch.setattr(sys, "argv", ["serve"])
+    flags = [] if arch is None else ["--arch", arch]
+    monkeypatch.setattr(sys, "argv", ["serve", *flags])
     jax_serve.main()
     ref = capsys.readouterr().out
-    port_serve.main(["--device", "cpu"])
+    port_serve.main(["--device", "cpu", *flags])
     out = capsys.readouterr().out
     assert out == ref
     assert "pool tokens served" in out
