@@ -55,17 +55,27 @@ each reported on its own line:
    model, on the host clock and under ``torch.profiler`` (device time
    by kernel);
 8. ``families`` — after the kernel report, with Qwen3-8B freed: the
-   paged kernel at the new shapes (gemma2-9b's dh 256 / G 2 with
+   paged kernel at the families' shapes (gemma2-9b's dh 256 / G 2 with
    window 4096 and softcap 50 over contexts 0-8,192, recurrentgemma-2b's
-   dh 256 / G 10 with window 2048, G 16 and G 8; f32 queries at dh 256)
-   and flash at dh 256 with window and softcap (S = 512 and 4,608)
-   against their plain versions; gemma2-9b and qwen3-moe-30b-a3b served
-   at full width and depth through the gateway (every request admitted,
-   flash on the route ``route()`` names, every paged launch split and
-   gemma2's local layers windowed, no plain version on CUDA tensors,
-   the MoE capacity's dropped share), one line per model; and the six
-   configs of the slice, reduced in float32, with identical greedy
-   tokens on the card and the CPU.
+   dh 256 / G 10 with window 2048, G 16, G 8, internvl2-2b's G 2 and
+   whisper-small's dh 64 / G 1; f32 queries at dh 256) and flash at
+   dh 256 with window and softcap (S = 512 and 4,608), at dh 256 / G 10
+   with window 2048 (S = 2,600), at dh 128 / G 2, and without the
+   causal mask at whisper's shapes (S = Sk = 1,500; Sq 64 and 1 over
+   Sk = 1,500) against their plain versions, each windowed case also
+   with its window a chunk off and each non-causal case also causal,
+   which must fail; gemma2-9b, qwen3-moe-30b-a3b, recurrentgemma-2b,
+   xlstm-350m and internvl2-2b served at full width and depth through
+   the gateway (every request admitted, flash on the route ``route()``
+   names, every paged launch split and the local layers windowed, no
+   plain version on CUDA tensors, the MoE capacity's dropped share, the
+   recurrent layers' share of a prefill and a decode step), one line
+   per model, and internvl2-2b's image prefix (256 patch embeddings) at
+   the model level; whisper-small at full width and depth through its
+   model entry points (4 sequences of 1,500 frames, 32 decode steps,
+   flash launches counted by call); and every configuration the engine
+   serves, reduced in float32, with identical greedy tokens on the card
+   and the CPU, and reduced whisper-small at the model level.
 
 Then a ``timer`` line gives each kernel, the kernel it replaced and the
 library call timed once more with the first port's serial timer (host
@@ -73,7 +83,7 @@ time inside the window), one JSON line describes each kernel (launches
 on the serve path, error against the plain version, device times at
 the path's shapes of the kernel, the kernel it replaced, its plain
 version and the library call, and the card's bound for that work; and
-one row per new shape of the ``families`` phase), and the last line is
+one row per shape of the ``families`` phase), and the last line is
 the result.  Any failure exits non-zero
 before the result line.
 """
@@ -1391,6 +1401,23 @@ def drive(torch, eng, pool, serving, reqs_spec, max_tokens: int):
     return reqs
 
 
+def guard_plain(fa_mod, pa_mod, plain_on_cuda: dict):
+    """Count the plain versions' calls on CUDA tensors in
+    ``plain_on_cuda`` (a silent fallback); returns the originals, to
+    put back."""
+    saved = (fa_mod.reference_attention, pa_mod.reference_paged_attention)
+
+    def guard(fn, key):
+        def wrapped(q, *a, **kw):
+            plain_on_cuda[key] += int(q.is_cuda)
+            return fn(q, *a, **kw)
+        return wrapped
+
+    fa_mod.reference_attention = guard(saved[0], "flash")
+    pa_mod.reference_paged_attention = guard(saved[1], "paged")
+    return saved
+
+
 def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
     from repro_torch import serving
     from repro_torch.configs import get_config
@@ -1428,16 +1455,7 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
     # a plain version reached with CUDA tensors would be a silent
     # fallback: count such calls on the serve path
     plain_on_cuda = {"flash": 0, "paged": 0}
-
-    def guard(fn, key):
-        def wrapped(q, *a, **kw):
-            plain_on_cuda[key] += int(q.is_cuda)
-            return fn(q, *a, **kw)
-        return wrapped
-
-    saved = (fa_mod.reference_attention, pa_mod.reference_paged_attention)
-    fa_mod.reference_attention = guard(saved[0], "flash")
-    pa_mod.reference_paged_attention = guard(saved[1], "paged")
+    saved = guard_plain(fa_mod, pa_mod, plain_on_cuda)
     try:
         pool, gw = build_gateway(cfg, slots, max_tokens, "cuda")
         eng = serving.InferenceEngine(
@@ -1658,15 +1676,22 @@ FAMILY_PAGED_CASES = [
      [[0, 1, 63, 64, 65, 128, 2047, 1000]]),
     ("qwen3-moe-30b-a3b", 32, 4, 128, None, None,
      [[0, 1, 63, 64, 65, 128, 2047, 1000]]),
+    ("internvl2-2b", 16, 8, 128, None, None,
+     [[0, 1, 63, 64, 65, 128, 2047, 1000]]),
+    ("whisper-small decoder", 12, 12, 64, None, None,
+     [[0, 1, 8, 63, 64, 65, 96, 40]]),
 ]
 #: (atol, rtol) of the families kernel checks in bf16: an output
 #: averaged over ~4,096 random keys is ~0.03, so TOL["bfloat16"] would
 #: pass a window off by a whole 64-token chunk (a change of ~1e-3-4e-2);
 #: the sound kernels stay within a bf16 rounding of the plain versions
 TOL_FAMILIES = (2e-3, 2e-2)
-#: the six configurations this slice adds
+#: every configuration the engine serves beside qwen3-8b
 FAMILY_ARCHS = ("deepseek-7b", "tinyllama-1.1b", "gemma2-2b", "gemma2-9b",
-                "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b")
+                "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
+                "recurrentgemma-2b", "xlstm-350m", "internvl2-2b")
+#: whisper-small's encoder frames (30 s of audio) and decode steps
+WHISPER_FRAMES, WHISPER_STEPS = 1500, 32
 
 
 def limit_ratio(out, ref, atol: float, rtol: float) -> float:
@@ -1677,13 +1702,16 @@ def limit_ratio(out, ref, atol: float, rtol: float) -> float:
 
 
 def family_kernel_checks(torch, seed: int) -> dict:
-    """The paged kernel at the slice's new shapes (bf16, windows, G 10
-    and 16, dh 256) and flash at dh 256 with a window and a softcap,
-    each against its plain version at ``TOL_FAMILIES``; the serial
-    baseline at the new widths and groups (it has no window).  Each
-    windowed case also runs the kernel with its window 64 tokens (one
-    chunk) too long and too short, and that wrong output must fail the
-    same check.  Returns the max error per case."""
+    """The paged kernel at the families' shapes (bf16, windows, G 1 to
+    16, dh 64 to 256), flash at dh 256 with a window and a softcap
+    (gemma2-9b) and with a window at G 10 (recurrentgemma-2b), and flash
+    without the causal mask (whisper-small's encoder, and its
+    cross-attention with Sq 1 and 64 over 1,500 keys), each against its
+    plain version at ``TOL_FAMILIES``; the serial baseline at the
+    widths and groups without a window.  Each windowed case also runs
+    the kernel with its window 64 tokens (one chunk) too long and too
+    short, and each non-causal case runs it causal: that wrong output
+    must fail the same check.  Returns the max error per case."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
@@ -1698,7 +1726,7 @@ def family_kernel_checks(torch, seed: int) -> dict:
         ratio = limit_ratio(out, ref, *TOL_FAMILIES)
         check(ratio <= 1, f"families {what}: max |err| {err}, "
                           f"{ratio:.3g} x the limit {TOL_FAMILIES}")
-        sound.append(ratio)
+        sound.append((ratio, what))
         return err
 
     def off_by_a_chunk(fn, ref, window, what):
@@ -1772,13 +1800,64 @@ def family_kernel_checks(torch, seed: int) -> dict:
         del ref
         lines.append(f"flash bf16 dh 256 S={S} window 4096 softcap 50 "
                      f"max|err| {errs[f'flash S={S}']:.3g}")
+    # recurrentgemma-2b's local layers: dh 256, G 10, window 2048, past it
+    S = 2600
+    q, k, v = (torch.randn(1, S, h, 256, device="cuda", generator=g)
+               .to(torch.bfloat16).transpose(1, 2) for h in (10, 1, 1))
+    out = flash_attention(q, k, v, causal=True, window=2048)
+    torch.cuda.synchronize()
+    ref = reference_attention(q, k, v, causal=True, window=2048)
+    errs["flash dh 256 G 10"] = hold(out, ref, f"flash dh 256 G 10 S={S}")
+    off_by_a_chunk(lambda w: flash_attention(q, k, v, causal=True,
+                                             window=w), ref, 2048,
+                   f"flash dh 256 G 10 S={S}")
+    del ref
+    lines.append(f"flash bf16 dh 256 G 10 S={S} window 2048 max|err| "
+                 f"{errs['flash dh 256 G 10']:.3g}")
     took = [r for r, n in flash_attention.route_launches.items()
             if n > before[r]]
     check(took == ["scalar"], f"families flash dh 256 took {took}")
+    # whisper-small: the encoder's bidirectional attention (S = Sk =
+    # 1,500) and the decoder's cross-attention (Sq 1 and 64 over the
+    # 1,500 encoder keys), dh 64, G 1; each run again causal, which must
+    # miss the limit
+    before = dict(flash_attention.route_launches)
+    k, v = (torch.randn(1, WHISPER_FRAMES, 12, 64, device="cuda",
+                        generator=g).to(torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    for Sq in (WHISPER_FRAMES, 64, 1):
+        q = torch.randn(1, Sq, 12, 64, device="cuda", generator=g) \
+            .to(torch.bfloat16).transpose(1, 2)
+        out = flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        ref = reference_attention(q, k, v, causal=False)
+        what = f"flash non-causal Sq={Sq} Sk={WHISPER_FRAMES}"
+        errs[what] = hold(out, ref, what)
+        flipped = limit_ratio(flash_attention(q, k, v, causal=True), ref,
+                              *TOL_FAMILIES)
+        check(flipped > 1, f"families {what}: the causal kernel passes the "
+                           f"non-causal check ({flipped:.3g} x the limit)")
+        wrong.append(flipped)
+        lines.append(f"{what} dh 64 bf16 max|err| {errs[what]:.3g} (causal "
+                     f"twin {flipped:.3g} x the limit)")
+    # internvl2-2b's prefill: causal, dh 128, G 2
+    q, k, v = (torch.randn(1, 512, h, 128, device="cuda", generator=g)
+               .to(torch.bfloat16).transpose(1, 2) for h in (16, 8, 8))
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    errs["flash dh 128 G 2"] = hold(out, reference_attention(q, k, v),
+                                    "flash dh 128 G 2 S=512")
+    lines.append(f"flash bf16 dh 128 G 2 S=512 causal max|err| "
+                 f"{errs['flash dh 128 G 2']:.3g}")
+    took = [r for r, n in flash_attention.route_launches.items()
+            if n > before[r]]
+    check(took == ["wgmma"], f"families flash dh 64/128 took {took}")
     print(f"families kernels: within |err| <= {TOL_FAMILIES[0]} + "
           f"{TOL_FAMILIES[1]}·|ref| of the plain versions on the card "
-          f"(largest reading {max(sound):.3g} of the limit); every window "
-          f"off by 64 tokens either way fails it (smallest reading "
+          f"(largest reading {max(sound)[0]:.3g} of the limit, "
+          f"{max(sound)[1]}); every window "
+          f"off by 64 tokens either way and every causal twin of a "
+          f"non-causal case fails it (smallest reading "
           f"{min(wrong):.3g} of the limit, {len(wrong)} runs); "
           + "; ".join(lines))
     return errs
@@ -1801,32 +1880,40 @@ def busy_share(torch, fn):
     return (dev, wall) if dev > 0 else None
 
 
-def family_workload(np, seed: int, vocab: int, long_prompts: bool):
-    """12 prompts of 32-512 tokens, and 4 more: of 4,160-4,608 tokens
-    (``long_prompts``) or of 32-512; tenants alternate, one arrival every
-    0.25 simulated seconds, the long ones at positions 3, 7, 11, 15."""
+def family_workload(np, seed: int, vocab: int, long=None,
+                    short=(32, 513), n: int = 16):
+    """``n`` − 4 prompts with lengths drawn from ``short`` (a half-open
+    range), and 4 more from ``long`` (or ``short``) at positions 3, 7,
+    11, 15; tenants alternate, one arrival every 0.25 simulated
+    seconds."""
     r = np.random.default_rng(seed)
-    lens = list(r.integers(32, 513, 12))
-    extra = r.integers(4160, 4609, 4) if long_prompts \
-        else r.integers(32, 513, 4)
-    for j, n in enumerate(extra):
-        lens.insert(4 * j + 3, n)
+    lens = list(r.integers(*short, n - 4))
+    extra = r.integers(*(long or short), 4)
+    for j, k in enumerate(extra):
+        lens.insert(4 * j + 3, k)
     return [(f"r{i}", "prod" if i % 2 == 0 else "batch",
-             r.integers(0, vocab, int(n)).tolist(), 0.25 * i)
-            for i, n in enumerate(lens)]
+             r.integers(0, vocab, int(k)).tolist(), 0.25 * i)
+            for i, k in enumerate(lens)]
 
 
 def serve_family(torch, np, seed: int, arch: str, max_seq: int,
-                 long_prompts: bool, max_tokens: int = 32):
+                 long=None, max_tokens: int = 32, short=(32, 513),
+                 n: int = 16, probe=None):
     """One full-width model through TokenPool → Gateway → InferenceEngine
     on the card (8 slots, 16-token pages, the pool given the KV bytes of
-    the engine's page pool), with every kernel launch counted and plain
-    versions on CUDA tensors refused.  Returns what the report needs."""
+    the engine's page pool, or 1 GiB where the model keeps none), with
+    every kernel launch counted and plain versions on CUDA tensors
+    refused; the workload is ``family_workload``'s.  A model with
+    recurrent layers then has their share of a decode step and of a
+    prefill timed (``recurrence_share``).  ``probe(engine, model,
+    params)``, where given, runs last, on the served model.  Returns
+    what the report needs."""
     from repro_torch import serving
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_gateway
     from repro_torch.models import build_model, param_count
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import ATTN_KINDS, layer_kinds
     fa_mod = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
     pa_mod = importlib.import_module(
@@ -1878,12 +1965,6 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
 
     plain_on_cuda = {"flash": 0, "paged": 0}
 
-    def guard(fn, key):
-        def wrapped(q, *a, **kw):
-            plain_on_cuda[key] += int(q.is_cuda)
-            return fn(q, *a, **kw)
-        return wrapped
-
     # the share of MoE assignments dropped by the reference's capacity,
     # at prefill (T = prompt) and at decode (T = lanes)
     drops = {"prefill": [0, 0], "decode": [0, 0]}
@@ -1897,20 +1978,19 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
         drops[key][1] += (~keep).sum()
         return perm, dst, keep
 
-    saved = (fa_mod.reference_attention, pa_mod.reference_paged_attention)
-    fa_mod.reference_attention = guard(saved[0], "flash")
-    pa_mod.reference_paged_attention = guard(saved[1], "paged")
+    saved = guard_plain(fa_mod, pa_mod, plain_on_cuda)
     moe_mod._dispatch_indices = counted_dispatch
     try:
         max_pages = max_seq // page + 1
-        kv_bytes = slots * max_pages * page * cfg.kv_bytes_per_token
+        kv_bytes = slots * max_pages * page * cfg.kv_bytes_per_token \
+            or float(1 << 30)
         pool, gw = build_gateway(cfg, slots, max_tokens, "cuda",
                                  kv_bytes=kv_bytes)
         eng = serving.InferenceEngine(
             dataclasses.replace(model, prefill=timed_prefill,
                                 decode_step=timed_decode), params,
             slots=slots, max_seq=max_seq, gateway=gw, page_tokens=page)
-        spec = family_workload(np, seed + 5, cfg.vocab_size, long_prompts)
+        spec = family_workload(np, seed + 5, cfg.vocab_size, long, short, n)
         for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
             fn.launches = 0
             fn.route_launches = dict.fromkeys(fn.route_launches, 0)
@@ -1935,24 +2015,27 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
               and all(0 <= t < cfg.vocab_size for t in r.output_tokens),
               f"families {arch}: {r.request_id} gave "
               f"{len(r.output_tokens)} tokens or ids outside the vocabulary")
+    kinds = layer_kinds(cfg)
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    n_local = kinds.count("local")
     fa_route = fa_mod.route(torch.bfloat16, cfg.head_dim)
     check(routes["flash"][fa_route] == launches["flash"]
-          == len(fin) * cfg.num_layers,
+          == len(fin) * n_attn,
           f"families {arch}: flash launches {routes['flash']} for "
-          f"{len(fin)} prompts x {cfg.num_layers} layers, route {fa_route}")
-    n_local = sum(k == "local" for k in cfg.pattern) * cfg.n_periods
-    check(routes["paged"]["split"] == launches["paged"] > 0,
+          f"{len(fin)} prompts x {n_attn} attention layers, route {fa_route}")
+    check(routes["paged"]["split"] == launches["paged"]
+          and (launches["paged"] > 0) == (n_attn > 0),
           f"families {arch}: paged launches off the split kernel {routes}")
-    check(routes["paged windowed"] * cfg.num_layers
-          == launches["paged"] * n_local,
+    check(routes["paged windowed"] * n_attn == launches["paged"] * n_local,
           f"families {arch}: {routes['paged windowed']} windowed of "
           f"{launches['paged']} paged launches; {n_local} of "
-          f"{cfg.num_layers} layers are local")
+          f"{n_attn} attention layers are local")
     check(not any(plain_on_cuda.values()),
           f"families {arch}: plain versions on CUDA tensors {plain_on_cuda}")
     # a fresh prompt's logits through the engine's pages are finite
     kv = eng.kv_pages
     kv.allocate("probe", 40)
+    eng.cache.reset(0)
     table = torch.from_numpy(kv.block_table("probe", eng.max_pages)[None]) \
         .to("cuda")
     logits = model.prefill(params, torch.tensor([spec[0][2][:40]],
@@ -1963,7 +2046,7 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
           f"families {arch}: logits not finite or of the wrong shape")
 
-    short = [ms for s, ms in prefill_ms if s <= 512]
+    short_ms = [ms for s, ms in prefill_ms if s <= 512]
     longs = [(s, ms) for s, ms in prefill_ms if s > 512]
     dec_tok = sum(b for b, _ in decode_ms)
     dec_s = sum(ms for _, ms in decode_ms) / 1e3
@@ -1971,6 +2054,17 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
     for b, ms in decode_ms:
         by_lanes.setdefault(b, []).append(ms)
     dev_wall = busy.get("share")
+    rec_txt = ""
+    probe_len = min(short[1] - 1, 256)
+    if n_attn < len(kinds):
+        (pre_ms, pre_rec), (dec_ms, dec_rec) = recurrence_share(
+            torch, np, eng, model, params, seed, probe_len)
+        rec_txt = (f"; the {len(kinds) - n_attn} recurrent layers (host "
+                   f"clock, a synchronise around each) take {pre_rec:.2f} of "
+                   f"{pre_ms:.2f} ms of a {probe_len}-token "
+                   f"prefill ({100 * pre_rec / pre_ms:.0f} %) and "
+                   f"{dec_rec:.2f} of {dec_ms:.2f} ms of an 8-lane decode "
+                   f"step ({100 * dec_rec / dec_ms:.0f} %)")
     drop_txt = ""
     if cfg.is_moe:
         drop_txt = "; MoE assignments dropped by capacity " + ", ".join(
@@ -1986,8 +2080,9 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
         + f", vocab {cfg.vocab_size}), {n_params / 1e9:.3f} B params "
         f"{cfg.dtype}, init {init_s:.1f} s; slots {slots}, max_seq "
         f"{max_seq}, pool KV {kv_bytes / 1e9:.2f} GB; admitted "
-        f"{len(fin)}/{len(reqs)}; prefill ms: {len(short)} prompts of "
-        f"32-512 tokens mean {sum(short) / max(len(short), 1):.2f}"
+        f"{len(fin)}/{len(reqs)}; prefill ms: {len(short_ms)} prompts of "
+        f"{short[0]}-{min(short[1] - 1, 512)} tokens mean "
+        f"{sum(short_ms) / max(len(short_ms), 1):.2f}"
         + "".join(f", {s} tokens {ms:.2f}" for s, ms in longs)
         + f"; decode {dec_tok / max(dec_s, 1e-9):.1f} tok/s ({dec_tok} "
         f"tokens in {dec_s:.2f} s of decode steps; mean step ms by lanes "
@@ -1999,17 +2094,319 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
            f"({100 * dev_wall[0] / dev_wall[1]:.0f} %)" if dev_wall
            else "not measured (no device time recorded)")
         + f"; peak memory {peak_gb:.2f} GB; launches by route {routes}; "
-        f"plain calls on CUDA {plain_on_cuda}" + drop_txt)
+        f"plain calls on CUDA {plain_on_cuda}" + rec_txt + drop_txt)
     ctx = [len(r.prompt_tokens) + max_tokens // 2 for r in fin[:slots]]
     return {"launches": launches, "routes": routes,
             "flash_by_len": flash_by_len, "cfg": cfg, "ctx": ctx,
-            "prompts": [len(s[2]) for s in spec]}
+            "prompts": [len(s[2]) for s in spec],
+            "probe": probe and probe(eng, model, params)}
+
+
+def recurrence_share(torch, np, eng, model, params, seed: int, S: int):
+    """The recurrent layers' share of a prefill and of a decode step, on
+    the host clock with a synchronise around each recurrent layer (so
+    the shares include the launch overhead of their eager ops): 8 seeded
+    prompts of ``S`` tokens prefilled one at a time into lanes 0-7 of
+    the served engine's cache, then one decode step of the 8.  Returns
+    ((prefill ms, of it recurrent ms), (step ms, of it recurrent
+    ms)), the prefill the last of the 8."""
+    from repro_torch.models import transformer
+    kv, B = eng.kv_pages, eng.slots
+    ids = [f"rec{i}" for i in range(B)]
+    for rid in ids:
+        kv.allocate(rid, S + 1)
+    tables = torch.from_numpy(np.stack(
+        [kv.block_table(rid, eng.max_pages) for rid in ids])).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    prompt = torch.randint(0, model.cfg.vocab_size, (B, S), device="cuda",
+                           generator=g)
+    spent = []
+    inner = transformer._recurrent
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    def run(fn):
+        spent.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t), 1e3 * sum(spent)
+
+    transformer._recurrent = timed
+    try:
+        for b in range(B):
+            eng.cache.reset(b)
+            pre = run(lambda b=b: model.prefill(
+                params, prompt[b:b + 1], eng.cache, tables[b:b + 1],
+                lanes=torch.tensor([b], device="cuda")))
+        tok = prompt[:, -1:]
+        pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        dec = run(lambda: model.decode_step(params, tok, eng.cache, tables,
+                                            pos))
+    finally:
+        transformer._recurrent = inner
+    for rid in ids:
+        kv.free(rid)
+    return pre, dec
+
+
+def vlm_prefix(torch, seed: int, eng, model, params, n_text: int = 64,
+               steps: int = 16) -> dict:
+    """internvl2-2b's image path at the model level, on the served
+    engine's pages: one prefill of ``num_vision_tokens`` seeded patch
+    embeddings in front of a seeded prompt of ``n_text`` tokens, then
+    ``steps`` greedy decode steps from position N + ``n_text``; every
+    logit finite, the kernels' launches counted."""
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention").flash_attention
+    pa = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention").paged_attention
+    cfg = model.cfg
+    N = cfg.num_vision_tokens
+    kv = eng.kv_pages
+    kv.allocate("vlm", N + n_text + steps)
+    table = torch.from_numpy(kv.block_table("vlm", eng.max_pages)[None]) \
+        .to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 23)
+    patches = torch.randn(1, N, cfg.d_model, device="cuda", generator=g) \
+        .to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (1, n_text), device="cuda",
+                           generator=g)
+    n0 = (fa.launches, pa.launches)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = model.prefill(params, prompt, eng.cache, table,
+                           extra_embed=patches)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t)
+    finite = [bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())]
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    t = time.perf_counter()
+    for i in range(steps):
+        pos = torch.tensor([N + n_text + i], dtype=torch.int32, device="cuda")
+        logits = model.decode_step(params, tok, eng.cache, table, pos)
+        finite.append(bool(torch.isfinite(logits[..., :cfg.vocab_size])
+                           .all()))
+        tok = logits[:, 0].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t) / steps
+    kv.free("vlm")
+    launches = (fa.launches - n0[0], pa.launches - n0[1])
+    check(all(finite), "families internvl2-2b image prefix: logits not "
+                       "finite")
+    check(launches == (cfg.num_layers, steps * cfg.num_layers),
+          f"families internvl2-2b image prefix: launches (flash, paged) "
+          f"{launches}")
+    print(f"families internvl2-2b image prefix: {N} seeded patch embeddings "
+          f"through vision_proj in front of a {n_text}-token prompt "
+          f"(positions 0-{N + n_text - 1}), prefill {prefill_ms:.2f} ms; "
+          f"{steps} decode steps from position {N + n_text}, "
+          f"{decode_ms:.2f} ms each; logits finite; launches (flash, paged) "
+          f"{launches}")
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def whisper_run(torch, np, seed: int) -> dict:
+    """whisper-small at full width and depth through its model entry
+    points (no engine serves it: fault C10): 4 sequences of 1,500 seeded
+    frames, prefilled one at a time into lanes 0-3 with decoder prompts
+    of 8-64 tokens, then 32 greedy decode steps of the 4 together.
+    Every flash launch is counted by call (the encoder, cross-attention
+    at prefill and at decode, the causal self-attention), every paged
+    launch too, and plain versions on CUDA tensors are refused."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model, param_count
+    from repro_torch.serving.kv_manager import KVBlockManager
+    fa_mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
+    cfg = get_config("whisper-small")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n, page, L = 4, 16, cfg.num_layers
+    r = np.random.default_rng(seed + 19)
+    lens = [int(x) for x in r.integers(8, 65, n)]
+    prompts = [torch.tensor([r.integers(0, cfg.vocab_size, k).tolist()],
+                            device="cuda") for k in lens]
+    g = torch.Generator(device="cuda").manual_seed(seed + 19)
+    frames = torch.randn(n, WHISPER_FRAMES, cfg.d_model, device="cuda",
+                         generator=g).to(torch.bfloat16)
+    max_pages = (max(lens) + WHISPER_STEPS) // page + 1
+    kv = KVBlockManager(total_pages=n * max_pages, page_tokens=page,
+                        bytes_per_token=cfg.kv_bytes_per_token)
+    cache = model.init_cache(kv.total_pages, page, device="cuda", lanes=n)
+
+    calls = dict.fromkeys(("encoder", "cross prefill", "cross decode",
+                           "self prefill"), 0)
+    bshd = attn_mod.flash_attention_bshd
+
+    def counted(q, k, v, *, causal=True, **kw):
+        kind = ("self prefill" if causal else "cross decode"
+                if q.shape[1] == 1 else "encoder" if q.shape[1] == k.shape[1]
+                else "cross prefill")
+        before = fa_mod.flash_attention.launches
+        out = bshd(q, k, v, causal=causal, **kw)
+        calls[kind] += fa_mod.flash_attention.launches - before
+        return out
+
+    def tables():
+        return torch.from_numpy(np.stack(
+            [kv.block_table(f"w{i}", max_pages) for i in range(n)])).to("cuda")
+
+    plain_on_cuda = {"flash": 0, "paged": 0}
+    saved = guard_plain(fa_mod, pa_mod, plain_on_cuda)
+    attn_mod.flash_attention_bshd = counted
+    prefill_ms, decode_ms, finite, first = [], [], [], []
+    try:
+        for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
+            fn.launches = 0
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+        for i in range(n):
+            kv.allocate(f"w{i}", lens[i])
+            table = torch.from_numpy(kv.block_table(f"w{i}", max_pages)[None]) \
+                .to("cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = model.prefill(params, prompts[i], cache, table,
+                                   lanes=torch.tensor([i], device="cuda"),
+                                   extra_embed=frames[i:i + 1])
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t))
+            finite.append(bool(torch.isfinite(
+                logits[..., :cfg.vocab_size]).all()))
+            first.append(logits[0, -1].argmax())
+        tok = torch.stack(first)[:, None]
+        pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out_tokens = [tok]
+        for step in range(WHISPER_STEPS):
+            for i in range(n):
+                kv.extend(f"w{i}", lens[i] + step + 1)
+            bt = tables()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = model.decode_step(params, tok, cache, bt, pos)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t))
+            finite.append(bool(torch.isfinite(
+                logits[..., :cfg.vocab_size]).all()))
+            tok = logits[:, 0].argmax(-1, keepdim=True)
+            out_tokens.append(tok)
+            pos = pos + 1
+        routes = {"flash": dict(fa_mod.flash_attention.route_launches),
+                  "paged": dict(pa_mod.paged_attention.route_launches)}
+        launches = {"flash": fa_mod.flash_attention.launches,
+                    "paged": pa_mod.paged_attention.launches}
+        counted_calls = dict(calls)
+        # one more decode step under the profiler: the device-busy share
+        for i in range(n):
+            kv.extend(f"w{i}", lens[i] + WHISPER_STEPS + 1)
+        bt = tables()
+        dev_wall = busy_share(torch, lambda: model.decode_step(
+            params, tok, cache, bt, pos))
+    finally:
+        attn_mod.flash_attention_bshd = bshd
+        fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = torch.cat(out_tokens, 1)
+
+    check(all(finite), "families whisper-small: logits not finite")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "families whisper-small: token ids outside the vocabulary")
+    want = {"encoder": n * cfg.encoder_layers, "cross prefill": n * L,
+            "self prefill": n * L, "cross decode": WHISPER_STEPS * L}
+    check(counted_calls == want and launches["flash"] == sum(want.values())
+          == routes["flash"]["wgmma"],
+          f"families whisper-small: flash launches {counted_calls}, routes "
+          f"{routes['flash']}; want {want}, all wgmma")
+    check(launches["paged"] == routes["paged"]["split"]
+          == WHISPER_STEPS * L,
+          f"families whisper-small: paged launches {routes['paged']}")
+    check(not any(plain_on_cuda.values()),
+          f"families whisper-small: plain versions on CUDA tensors "
+          f"{plain_on_cuda}")
+    print(
+        f"families whisper-small: full width and depth ({cfg.encoder_layers} "
+        f"encoder + {L} decoder layers, d={cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, dh={cfg.head_dim}, "
+        f"d_ff={cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{param_count(params) / 1e9:.3f} B params {cfg.dtype}, init "
+        f"{init_s:.1f} s; {n} sequences of {WHISPER_FRAMES} seeded frames, "
+        f"decoder prompts {lens}; prefill (encoder, cross K/V, decoder) ms "
+        + ", ".join(f"{ms:.2f}" for ms in prefill_ms)
+        + f"; {WHISPER_STEPS} decode steps of {n} lanes, mean "
+        f"{sum(decode_ms) / len(decode_ms):.2f} ms "
+        f"({n * len(decode_ms) / (sum(decode_ms) / 1e3):.1f} tok/s); device "
+        f"busy in a decode step "
+        + (f"{dev_wall[0]:.2f} of {dev_wall[1]:.2f} ms "
+           f"({100 * dev_wall[0] / dev_wall[1]:.0f} %)" if dev_wall
+           else "not measured (no device time recorded)")
+        + f"; peak memory {peak_gb:.2f} GB; flash launches by call "
+        f"{counted_calls}, by route {routes['flash']}; paged "
+        f"{routes['paged']}; plain calls on CUDA {plain_on_cuda}")
+    return {"calls": counted_calls, "launches": launches, "lens": lens,
+            "ctx": [k + WHISPER_STEPS // 2 for k in lens]}
+
+
+def whisper_small_reference(torch, np, seed: int) -> int:
+    """whisper-small reduced, in float32, at the model level on the card
+    (kernels) and on the CPU (plain versions): 2 sequences of 48 frames,
+    9-token prompts, 12 greedy decode steps; identical tokens.  Returns
+    the token count."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.serving.kv_manager import KVBlockManager
+    cfg = get_config("whisper-small").reduced(dtype="float32",
+                                              max_seq_len=256)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), "cpu")
+    g = torch.Generator().manual_seed(seed + 29)
+    frames = torch.randn(2, 48, cfg.d_model, generator=g)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 9), generator=g)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = copy.deepcopy(params).to(dev)
+        kv = KVBlockManager(total_pages=4, page_tokens=16)
+        cache = model.init_cache(kv.total_pages, 16,
+                                 Runtime(kv_cache_dtype="float32"), dev,
+                                 lanes=2)
+        for b in range(2):
+            kv.allocate(f"s{b}", 9 + 12)
+        bt = torch.from_numpy(np.stack([kv.block_table(f"s{b}", 2)
+                                        for b in range(2)])).to(dev)
+        logits = model.prefill(p, prompts.to(dev), cache, bt,
+                               extra_embed=frames.to(dev))
+        toks = [logits[:, -1].argmax(-1)]
+        for t in range(12):
+            logits = model.decode_step(
+                p, toks[-1][:, None], cache, bt,
+                torch.full((2,), 9 + t, dtype=torch.int32, device=dev))
+            toks.append(logits[:, 0].argmax(-1))
+        outs[dev] = torch.stack(toks, 1).cpu().tolist()
+    check(outs["cuda"] == outs["cpu"],
+          "families reference: reduced whisper-small gave different greedy "
+          "tokens on the card and on the CPU")
+    return 2 * 13
 
 
 def family_small_reference(torch, np, seed: int) -> None:
-    """Each of the slice's six configurations, reduced and in float32,
-    served on the card (kernels) and on the CPU (plain versions):
-    identical greedy tokens."""
+    """Each configuration the engine serves beside qwen3-8b, reduced and
+    in float32, served on the card (kernels) and on the CPU (plain
+    versions), and whisper-small reduced at the model level: identical
+    greedy tokens."""
     from repro_torch import serving
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_gateway
@@ -2036,18 +2433,22 @@ def family_small_reference(torch, np, seed: int) -> None:
               f"families reference: reduced {arch} gave different greedy "
               "tokens on the card and on the CPU")
         parts.append(f"{arch} {sum(len(o[2]) for o in outs['cpu'])}")
+    parts.append(f"whisper-small (model level) "
+                 f"{whisper_small_reference(torch, np, seed)}")
     print("families reference: reduced float32 configs, greedy tokens "
           "identical on cuda (kernels) and cpu (plain versions): "
           + ", ".join(parts))
 
 
 def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
-    """Kernel JSON rows at the slice's new shapes: device ms (median of
-    30 after an L2 flush; of 10 for the plain versions and at S =
-    4,608), plain version, SDPA and the card's bound."""
+    """Kernel JSON rows at the families' shapes: device ms (median of
+    30 after an L2 flush; of 10 for the plain versions and at S of
+    2,600 and 4,608), plain version, SDPA and the card's bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
+    route = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention").route
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, reference_paged_attention)
     timer = Timer(torch)
@@ -2099,6 +2500,50 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
             "shape": f"B={B} H={H} H_kv={Hkv} dh={dh} T=16 ctx={ctx} "
                      f"window={window} softcap={cap} bf16; {note}"}
 
+    def flash_row(name, H, Hkv, Sq, Sk, dh, causal, window, cap, err,
+                  launches, note, B=1, t=timer):
+        q = torch.randn(B, Sq, H, dh, device="cuda", generator=g) \
+            .to(bf16).transpose(1, 2)
+        k, v = (torch.randn(B, Sk, Hkv, dh, device="cuda", generator=g)
+                .to(bf16).transpose(1, 2) for _ in range(2))
+        qp = torch.arange(Sq, device="cuda")[:, None]
+        kp = torch.arange(Sk, device="cuda")[None, :]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+        if causal:
+            mask &= kp <= qp
+        if window:
+            mask &= qp - kp < window
+        flops = 4.0 * B * H * dh * int(mask.sum())    # visible pairs only
+        nbytes = 2.0 * B * (2 * H * Sq + 2 * Hkv * Sk) * dh
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        t_bytes = nbytes / HBM_BYTES_S
+        o = torch.empty_like(q)
+        # SDPA's own causal path where no window needs the mask
+        masked = bool(window)
+        return {
+            "name": name, "route": "cuda", "source": FLASH_SRC,
+            "replaces": FLASH_TPU, "launches": launches,
+            "max_abs_err": err,
+            "ms": t.ms(lambda: flash_attention(q, k, v, causal=causal,
+                                               window=window, softcap=cap,
+                                               out=o)),
+            "plain_ms": plain_timer.ms(lambda: reference_attention(
+                q, k, v, causal=causal, window=window, softcap=cap)),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": t.ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask if masked else None,
+                is_causal=causal and not masked, enable_gqa=True)),
+            "shape": f"B={B} H={H} H_kv={Hkv} Sq={Sq} Sk={Sk} dh={dh} bf16 "
+                     f"causal={causal} window={window} softcap={cap}, "
+                     f"{route(bf16, dh)} route; {note}"
+                     + "; library: SDPA" + (" with the window as a mask"
+                                            if masked else " is_causal"
+                                            if causal else "")
+                     + (", no softcap" if cap else "")}
+
+    rg, vl, wh = (served[a] for a in ("recurrentgemma-2b", "internvl2-2b",
+                                      "whisper-small"))
     windowed = gem["routes"]["paged windowed"]
     rows.append(paged_row(
         "paged_decode_window", "gemma2-9b local", 16, 8, 256, gem["ctx"],
@@ -2115,70 +2560,84 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
         "paged_decode_g8", "qwen3-moe-30b-a3b", 32, 4, 128, moe_["ctx"],
         None, None, moe_["launches"]["paged"],
         "qwen3-moe-30b-a3b at its serve run's contexts"))
-    far = [4000, 3000, 2500, 2100, 2048, 1000, 300, 64]
     rows.append(paged_row(
         "paged_decode_g10_window", "recurrentgemma-2b local", 10, 1, 256,
-        far, 2048, None, 0,
-        "recurrentgemma-2b's shape; no served path runs it (its rglru "
-        "layers are not ported), so 0 launches"))
+        rg["ctx"], 2048, None, rg["routes"]["paged windowed"],
+        "recurrentgemma-2b's local layers at its serve run's contexts; "
+        "launches: that run's, all windowed; library: SDPA over the live "
+        "window"))
+    far = [4000, 3000, 2500, 2100, 2048, 1000, 300, 64]
     rows.append(paged_row(
         "paged_decode_g16", "qwen3-moe-235b-a22b", 64, 4, 128, far, None,
         None, 0,
         "qwen3-moe-235b-a22b's shape; no served path runs it (470 GB of "
         "weights are not served at full width), so 0 launches"))
+    rows.append(paged_row(
+        "paged_decode_g2", "internvl2-2b", 16, 8, 128, vl["ctx"], None,
+        None, vl["launches"]["paged"],
+        "internvl2-2b at its serve run's contexts (text)"))
+    rows.append(paged_row(
+        "paged_decode_dh64_g1", "whisper-small decoder", 12, 12, 64,
+        wh["ctx"], None, None, wh["launches"]["paged"],
+        "whisper-small's decoder self-attention at the run's contexts "
+        "mid-decode"))
 
-    # flash at gemma2-9b's width, scalar route, the long prompt
+    # flash at gemma2-9b's width, scalar route, a short and a long prompt
     for S in (512, 4608):
-        q, k, v = (torch.randn(1, S, h, 256, device="cuda", generator=g)
-                   .to(bf16).transpose(1, 2) for h in (16, 8, 8))
-        pairs = sum(min(i + 1, 4096) for i in range(S))
-        flops = 4.0 * 16 * 256 * pairs
-        nbytes = 2.0 * (2 * 16 + 2 * 8) * S * 256
-        t_ops = flops / PEAK_FLOPS["bfloat16"]
-        t_bytes = nbytes / HBM_BYTES_S
-        o = torch.empty_like(q)
-        qp = torch.arange(S, device="cuda")
-        mask = (qp[None, :] <= qp[:, None]) & (qp[:, None] - qp[None, :]
-                                               < 4096)
-        t = plain_timer if S > 512 else timer
-        rows.append({
-            "name": f"flash_prefill_dh256_s{S}", "route": "cuda",
-            "source": FLASH_SRC, "replaces": FLASH_TPU,
-            "launches": gem["flash_by_len"]["long" if S > 512
-                                            else "short"],
-            "max_abs_err": errs[f"flash S={S}"],
-            "ms": t.ms(lambda: flash_attention(q, k, v, causal=True,
-                                               window=4096, softcap=50.0,
-                                               out=o)),
-            "plain_ms": plain_timer.ms(lambda: reference_attention(
-                q, k, v, causal=True, window=4096, softcap=50.0)),
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": t.ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True)),
-            "shape": f"B=1 H=16 H_kv=8 S={S} dh=256 bf16 causal window "
-                     "4096 softcap 50, scalar route (f32 FMAs; the bound "
-                     "is at the bf16 tensor-core peak); launches: the "
-                     "gemma2-9b serve run's flash launches on prompts of "
-                     + ("4,160-4,608 tokens" if S > 512 else "32-512 tokens")
-                     + "; library: SDPA with the window as a mask, no "
-                     "softcap"})
+        rows.append(flash_row(
+            f"flash_prefill_dh256_s{S}", 16, 8, S, S, 256, True, 4096, 50.0,
+            errs[f"flash S={S}"],
+            gem["flash_by_len"]["long" if S > 512 else "short"],
+            "launches: the gemma2-9b serve run's flash launches on prompts "
+            "of " + ("4,160-4,608 tokens" if S > 512 else "32-512 tokens"),
+            t=plain_timer if S > 512 else timer))
+    rows.append(flash_row(
+        "flash_prefill_dh256_g10_s2600", 10, 1, 2600, 2600, 256, True, 2048,
+        None, errs["flash dh 256 G 10"], rg["flash_by_len"]["long"],
+        "recurrentgemma-2b's local layers; launches: its serve run's on "
+        "prompts of 2,100-2,600 tokens", t=plain_timer))
+    S = max(vl["prompts"])
+    rows.append(flash_row(
+        "flash_prefill_g2", 16, 8, S, S, 128, True, None, None,
+        errs["flash dh 128 G 2"], vl["launches"]["flash"],
+        "internvl2-2b at its longest prompt; launches: its serve run's"))
+    # whisper-small: max_abs_err from the check at Sq 1,500, 64 and 1
+    for name, Sq, checked, B, kind in (
+            ("flash_encoder_s1500", WHISPER_FRAMES, WHISPER_FRAMES, 1,
+             "encoder"),
+            ("flash_cross_prefill", max(wh["lens"]), 64, 1, "cross prefill"),
+            ("flash_cross_decode", 1, 1, len(wh["lens"]), "cross decode")):
+        rows.append(flash_row(
+            name, 12, 12, Sq, WHISPER_FRAMES, 64, False, None, None,
+            errs[f"flash non-causal Sq={checked} Sk={WHISPER_FRAMES}"],
+            wh["calls"][kind], f"whisper-small's {kind} attention, no "
+            "mask; launches: the whisper run's", B=B))
     return rows
 
 
 def phase_families(torch, np, seed: int) -> list:
-    """The slice's kernel shapes, gemma2-9b and qwen3-moe-30b-a3b served
-    at full width and depth, and the six reduced configs card = CPU.
-    Returns the kernel JSON rows of the new shapes."""
+    """The families' kernel shapes; gemma2-9b, qwen3-moe-30b-a3b,
+    recurrentgemma-2b, xlstm-350m and internvl2-2b (and its image
+    prefix) served at full width and depth; whisper-small at full width
+    and depth through its model entry points; the reduced configs card =
+    CPU.  Returns the kernel JSON rows of the families' shapes."""
     errs = family_kernel_checks(torch, seed)
     served = {}
-    served["gemma2-9b"] = serve_family(torch, np, seed, "gemma2-9b",
-                                       max_seq=4736, long_prompts=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    served["qwen3-moe-30b-a3b"] = serve_family(
-        torch, np, seed, "qwen3-moe-30b-a3b", max_seq=1024,
-        long_prompts=False)
+    runs = (
+        ("gemma2-9b", dict(max_seq=4736, long=(4160, 4609))),
+        ("qwen3-moe-30b-a3b", dict(max_seq=1024)),
+        ("recurrentgemma-2b", dict(max_seq=2688, long=(2100, 2601))),
+        # the xLSTM cells step token by token in eager ops: prompts of
+        # 32-128 tokens keep a prefill to ~100 k launches
+        ("xlstm-350m", dict(max_seq=256, short=(32, 129), n=8,
+                            max_tokens=16)),
+        ("internvl2-2b", dict(max_seq=1024, probe=lambda *a: vlm_prefix(
+            torch, seed, *a))))
+    for arch, kw in runs:
+        served[arch] = serve_family(torch, np, seed, arch, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    served["whisper-small"] = whisper_run(torch, np, seed)
     gc.collect()
     torch.cuda.empty_cache()
     family_small_reference(torch, np, seed)
@@ -2319,6 +2778,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase = "build"
+    t0 = time.perf_counter()
     try:
         card = phase_build()["card"]
         phase = "kernels"
@@ -2340,8 +2800,12 @@ def main(argv=None) -> int:
         report.append(admit_report)
         served.clear()                    # free Qwen3-8B for the next phase
         phase = "families"
+        t_families = time.perf_counter()
         report.extend(phase_families(torch, np, args.seed))
         card = card_line()
+        now = time.perf_counter()
+        print(f"seconds: {now - t0:.1f} in all, of them families "
+              f"{now - t_families:.1f}")
     except Exception:                     # noqa: BLE001 — report and fail
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)

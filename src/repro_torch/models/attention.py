@@ -2,7 +2,9 @@
 sliding-window causal masks and logit soft-capping; prefill writes the
 sequence's pages and attends through the flash-prefill kernel, decode
 writes one slot per sequence and attends through the paged-decode
-kernel.
+kernel.  The whisper encoder's bidirectional attention and the
+decoder's cross-attention over the encoder's K/V take the flash kernel
+with ``causal=False``.
 
 Counterpart of ``repro/models/attention.py``.  The reference engine
 decodes on a dense per-lane cache; here the KV of every layer lives in
@@ -12,10 +14,11 @@ walks.  Both kernels dispatch on the tensors' device: CUDA tensors go
 through the hand-written kernels, CPU tensors through their plain
 versions.
 
-``local`` layers (gemma2) pass ``cfg.window_size`` to both kernels.
-The reference keeps a ring buffer of ``window`` slots for them; here
-they write the same pages as global layers (one block table serves
-every layer) and the paged kernel skips the pages behind the window.
+``local`` layers (gemma2, recurrentgemma) pass ``cfg.window_size`` to
+both kernels.  The reference keeps a ring buffer of ``window`` slots
+for them; here they write the same pages as global layers (one block
+table serves every layer) and the paged kernel skips the pages behind
+the window.
 
 Shapes: activations (B, S, d); q/k/v (B, S, H, dh).
 """
@@ -46,15 +49,17 @@ def _window(cfg, kind: str):
     return cfg.window_size if kind == "local" else None
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,d) · w (d, n, dh) → (B,S,n,dh)."""
+    B, S, d = x.shape
+    return (x @ w.reshape(d, -1)).view(B, S, *w.shape[1:])
+
+
 def _project(params, x: torch.Tensor, positions: torch.Tensor, cfg):
     """q (B,S,H,dh), k/v (B,S,H_kv,dh) with RoPE at ``positions``."""
-    B, S, d = x.shape
-    q = (x @ params["wq"].reshape(d, -1)).view(B, S, cfg.num_heads, -1)
-    k = (x @ params["wk"].reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
-    v = (x @ params["wv"].reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope_theta)
+    k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope_theta)
+    return q, k, _heads(x, params["wv"])
 
 
 def _out(params, o: torch.Tensor) -> torch.Tensor:
@@ -105,3 +110,29 @@ def decode_attention(params, x: torch.Tensor, cfg, kind: str,
         block_tables, (pos + 1).to(torch.int32),
         softcap=cfg.attn_logit_softcap, window=_window(cfg, kind))
     return _out(params, o[:, None])
+
+
+def encoder_attention_block(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Bidirectional self-attention over a whole sequence (the whisper
+    encoder): no RoPE, no mask."""
+    o = flash_attention_bshd(_heads(x, params["wq"]), _heads(x, params["wk"]),
+                             _heads(x, params["wv"]), causal=False,
+                             softcap=cfg.attn_logit_softcap)
+    return _out(params, o)
+
+
+def encoder_kv(params, enc_out: torch.Tensor) -> dict[str, torch.Tensor]:
+    """A decoder layer's cross-attention K and V over the encoder's
+    output: (B, S_enc, H_kv, dh) each."""
+    return {"k": _heads(enc_out, params["wk"]),
+            "v": _heads(enc_out, params["wv"])}
+
+
+def cross_attention_block(params, x: torch.Tensor, enc_kv: dict, cfg
+                          ) -> torch.Tensor:
+    """Decoder cross-attention: x (B, Sq, d) — the prompt at prefill,
+    one token at decode — over the encoder's K/V, every key visible."""
+    o = flash_attention_bshd(_heads(x, params["wq"]), enc_kv["k"],
+                             enc_kv["v"], causal=False,
+                             softcap=cfg.attn_logit_softcap)
+    return _out(params, o)

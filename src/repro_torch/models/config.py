@@ -1,7 +1,7 @@
 """Unified architecture config covering all assigned families (a copy
 of ``repro/models/config.py``, so both packages describe a model with
-the same fields; the port's model stack runs the attention families,
-dense and MoE, so far).
+the same fields; the port's model stack runs every family it
+describes).
 
 One ``ArchConfig`` describes any of: dense GQA transformers (incl.
 gemma2's alternating local/global attention with logit soft-capping),

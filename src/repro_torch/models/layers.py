@@ -68,6 +68,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (f32) of ``positions`` (any
+    shape) → (..., d_model): sin on the even columns, cos on the odd."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=positions.device)
+    angle = positions[..., None].float() / torch.pow(10000.0, dim / d_model)
+    emb = torch.empty(positions.shape + (d_model,), dtype=torch.float32,
+                      device=positions.device)
+    emb[..., 0::2] = torch.sin(angle)
+    emb[..., 1::2] = torch.cos(angle)
+    return emb
+
+
+# -- gates -------------------------------------------------------------------------
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + e^x)`` as ``jax.nn.softplus`` computes it,
+    ``logaddexp(x, 0)``, at every x (``F.softplus`` returns x itself
+    above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 # -- soft capping (gemma2) ----------------------------------------------------------
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:

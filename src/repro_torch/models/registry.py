@@ -1,15 +1,21 @@
-"""Model registry: one uniform interface over the ported families.
+"""Model registry: one uniform interface over every family.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods are the contract
 the engine programs against:
 
-    init(gen, device)                                  → Transformer
-    prefill(params, tokens, cache, block_tables)       → logits
-    decode_step(params, tok, cache, block_tables, pos) → logits
-    init_cache(total_pages, page_tokens, rt, device)   → PagedKVCache
+    init(gen, device)                                        → params
+    prefill(params, tokens, cache, block_tables, lanes=None,
+            extra_embed=None)                                → logits
+    decode_step(params, tok, cache, block_tables, pos,
+                lanes=None)                                  → logits
+    init_cache(total_pages, page_tokens, rt, device, lanes=1) → cache
 
-``params`` is the :class:`~repro_torch.models.transformer.Transformer`
-module that ``init`` or ``params_from_jax`` returns; :func:`param_count`
+``params`` is the module that ``init`` or :func:`params_from_jax`
+returns: a :class:`~repro_torch.models.transformer.Transformer`, or an
+:class:`~repro_torch.models.encdec.EncoderDecoder` for an
+encoder-decoder config, whose prefill takes the encoder's frames as
+``extra_embed``.  ``lanes`` names the cache rows of each sequence's
+per-sequence state (recurrent state, cross K/V).  :func:`param_count`
 counts every weight, the MoE layers' router and all their experts
 included (not the active parameters of a token).
 
@@ -23,7 +29,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.runtime import LOCAL
 
@@ -40,16 +46,24 @@ class Model:
 def build_model(cfg: ArchConfig) -> Model:
     cfg.validate()
     transformer.check_supported(cfg)
+    lib = encdec if cfg.is_encoder_decoder else transformer
     return Model(
         cfg=cfg,
-        init=lambda gen, device="cuda":
-            transformer.init_params(gen, cfg, device),
-        prefill=transformer.prefill,
-        decode_step=transformer.decode_step,
-        init_cache=lambda total_pages, page_tokens, rt=LOCAL, device="cuda":
-            transformer.init_cache(cfg, total_pages, page_tokens, rt,
-                                   device),
+        init=lambda gen, device="cuda": lib.init_params(gen, cfg, device),
+        prefill=lib.prefill,
+        decode_step=lib.decode_step,
+        init_cache=lambda total_pages, page_tokens, rt=LOCAL, device="cuda",
+        lanes=1: lib.init_cache(cfg, total_pages, page_tokens, rt, device,
+                                lanes),
     )
+
+
+def params_from_jax(cfg: ArchConfig, np_params: dict,
+                    device) -> torch.nn.Module:
+    """The reference's param pytree (numpy leaves) → the port's module
+    for ``cfg``."""
+    lib = encdec if cfg.is_encoder_decoder else transformer
+    return lib.params_from_jax(cfg, np_params, device)
 
 
 def param_count(params: torch.nn.Module) -> int:

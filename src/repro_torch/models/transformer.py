@@ -1,6 +1,6 @@
-"""Decoder-only transformer trunk (the attention families: dense, with
-global and sliding-window layers, and MoE) as ``nn.Module``s, serving
-over a paged KV cache.
+"""Decoder-only trunk of every decoder-only family — dense, with global
+and sliding-window layers, MoE, the RG-LRU hybrid, xLSTM and the VLM
+backbone — as ``nn.Module``s, serving over a paged KV cache.
 
 Counterpart of ``repro/models/transformer.py``.  The reference stacks
 each pattern position's parameters across periods and scans them with
@@ -9,26 +9,30 @@ each pattern position's parameters across periods and scans them with
 :func:`params_from_jax` unstacks a reference pytree into that list.
 
 Entry points, matching the serving split:
-  ``prefill``      — prompts in, last-position logits out, KV pages written
+  ``prefill``      — prompts in, last-position logits out, KV pages and
+                     recurrent state written
   ``decode_step``  — one token per sequence in, logits out, one KV slot
-                     per sequence written
+                     per sequence and attention layer written, each
+                     recurrent layer's state advanced one step
 
-The KV cache (:class:`PagedKVCache`) is one ``(P, T, H_kv, dh)`` K page
-pool and one V page pool per layer; sequences address them through
-``KVBlockManager`` block tables; every layer, global or local, uses the
-same table (a local layer's kernel skips the pages behind its window).
+The cache (:class:`PagedKVCache`) holds one ``(P, T, H_kv, dh)`` K page
+pool and one V page pool per *attention* layer, which sequences address
+through ``KVBlockManager`` block tables (every attention layer, global
+or local, uses the same table; a local layer's kernel skips the pages
+behind its window), and the state of every recurrent layer (rglru,
+mlstm, slstm) as ``(lanes, ...)`` tensors, one row per sequence slot.
+A call names the rows of its sequences with ``lanes`` (default: row b
+for sequence b).  Recurrent layers treat each row on its own, so a
+batch may hold any subset of the rows.
 
-Families that run: dense global-only stacks (qwen3-8b, deepseek-7b,
-tinyllama-1.1b), gemma2's alternating local/global layers with post
-norms and both softcaps (gemma2-2b, gemma2-9b), and MoE MLPs
-(qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), whose MLP runs on the
-(B·S, d) tokens as the reference's ``_apply_mlp`` flattens them.
-Recurrent kinds (rglru, mlstm, slstm), encoder-decoder and VLM stacks
-are not ported yet (ROADMAP queue A, 'other model families').
+MoE MLPs run on the (B·S, d) tokens, as the reference's ``_apply_mlp``
+flattens them.  A VLM prompt may carry ``extra_embed`` patch
+embeddings, projected by ``vision_proj`` and put in front of the text.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,8 +40,11 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
+    dense_init,
     dtype_of,
     embed,
     embed_init,
@@ -49,18 +56,16 @@ from repro_torch.models.layers import (
 from repro_torch.models.runtime import LOCAL, Runtime
 
 ATTN_KINDS = ("global", "local")
+#: recurrent kind → its per-sequence state, ``fn(batch, cfg, device)``
+_STATE = {"rglru": rglru_lib.rglru_state, "mlstm": ssm_lib.mlstm_state,
+          "slstm": ssm_lib.slstm_state}
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the families the port's model stack does not run yet."""
-    todo = "ROADMAP queue A, 'other model families'"
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encdec ({cfg.name}): {todo}")
-    if cfg.num_vision_tokens:
-        raise NotImplementedError(f"VLM frontend ({cfg.name}): {todo}")
+    """Raise for a layer kind neither package knows."""
     for kind in layer_kinds(cfg):
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(f"{kind} layers ({cfg.name}): {todo}")
+        if kind not in ATTN_KINDS and kind not in _STATE:
+            raise ValueError(f"unknown layer kind {kind!r} ({cfg.name})")
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -119,20 +124,59 @@ class Block(nn.Module):
         return x + y
 
 
+class RecurrentBlock(nn.Module):
+    """One recurrent layer: ``rglru`` (the ``rec`` block, then ``ln2``
+    and the dense ``mlp``) or an xLSTM cell, ``mlstm`` or ``slstm``
+    (``cell``, which carries its own projections)."""
+
+    def __init__(self, kind: str, weights: dict) -> None:
+        super().__init__()
+        self.kind = kind
+        if kind == "rglru":
+            self.rec = _params(weights["rec"])
+            self.ln2 = _param(weights["ln2"])
+            self.mlp = _params(weights["mlp"])
+        else:
+            self.cell = _params(weights["cell"])
+
+    def forward(self, x: torch.Tensor, cfg: ArchConfig, state: dict,
+                decode: bool) -> tuple[torch.Tensor, dict]:
+        """x (B, S, d) from ``state`` (B rows) → (x, the new state)."""
+        if self.kind == "rglru":
+            step = (rglru_lib.rglru_decode_step if decode
+                    else rglru_lib.rglru_block)
+            x, state = step(self.rec, x, state)
+            return x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.mlp_kind), \
+                state
+        block = (ssm_lib.mlstm_block if self.kind == "mlstm"
+                 else ssm_lib.slstm_block)
+        return block(self.cell, x, state)
+
+
 class Transformer(nn.Module):
-    """Embedding (tied unembedding), the layers in depth order, and the
-    final norm.  ``weights`` is ``{"embed", "final_norm", "layers": [per
-    layer dict]}`` as :func:`init_params` / :func:`params_from_jax`
-    build it."""
+    """Embedding (tied unembedding), the VLM's ``vision_proj`` where the
+    config has vision tokens, the layers in depth order, and the final
+    norm.  ``weights`` is ``{"embed", "final_norm", "layers": [per layer
+    dict]}`` (and ``"vision_proj"``) as :func:`init_params` /
+    :func:`params_from_jax` build it.  ``slots[i]`` is layer i's index
+    among the cache's attention layers or among its recurrent ones."""
 
     def __init__(self, cfg: ArchConfig, weights: dict) -> None:
         super().__init__()
         self.cfg = cfg
         self.embed = _param(weights["embed"])
         self.final_norm = _param(weights["final_norm"])
+        if "vision_proj" in weights:
+            self.vision_proj = _param(weights["vision_proj"])
+        kinds = layer_kinds(cfg)
         self.layers = nn.ModuleList(
-            Block(kind, w)
-            for kind, w in zip(layer_kinds(cfg), weights["layers"]))
+            (Block if kind in ATTN_KINDS else RecurrentBlock)(kind, w)
+            for kind, w in zip(kinds, weights["layers"]))
+        self.slots = []
+        count = {True: 0, False: 0}             # attention layer or not
+        for kind in kinds:
+            self.slots.append(count[kind in ATTN_KINDS])
+            count[kind in ATTN_KINDS] += 1
 
     @property
     def device(self) -> torch.device:
@@ -140,31 +184,70 @@ class Transformer(nn.Module):
 
 
 # ============================ params ============================================
+def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
+               device) -> dict:
+    d = cfg.d_model
+    if kind == "rglru":
+        return {"rec": rglru_lib.init_rglru_block(gen, cfg, dtype, device),
+                "ln2": torch.zeros(d, device=device),
+                "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                device)}
+    if kind == "mlstm":
+        return {"cell": ssm_lib.init_mlstm_block(gen, cfg, dtype, device)}
+    if kind == "slstm":
+        return {"cell": ssm_lib.init_slstm_block(gen, cfg, dtype, device)}
+    layer = {
+        "ln1": torch.zeros(d, device=device),
+        "attn": attn.init_attention(gen, cfg, dtype, device),
+        "ln2": torch.zeros(d, device=device),
+    }
+    if cfg.is_moe:
+        layer["moe"] = moe_lib.init_moe(gen, cfg, dtype, device)
+    else:
+        layer["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                device)
+    if cfg.use_post_norm:
+        layer["post_ln1"] = torch.zeros(d, device=device)
+        layer["post_ln2"] = torch.zeros(d, device=device)
+    return layer
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig,
                 device) -> Transformer:
-    """Random init from ``gen`` (a generator on ``device``)."""
+    """Random init from ``gen`` (a generator on ``device``), with the
+    reference's initialisers (RG-LRU's Λ from U(0.9, 0.999), the xLSTM
+    forget biases at 3, the recurrent gates' weights in float32)."""
     dtype = dtype_of(cfg.dtype)
     d = cfg.d_model
-    layers = []
-    for _ in layer_kinds(cfg):
-        layer = {
-            "ln1": torch.zeros(d, device=device),
-            "attn": attn.init_attention(gen, cfg, dtype, device),
-            "ln2": torch.zeros(d, device=device),
-        }
-        if cfg.is_moe:
-            layer["moe"] = moe_lib.init_moe(gen, cfg, dtype, device)
-        else:
-            layer["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
-                                    device)
-        if cfg.use_post_norm:
-            layer["post_ln1"] = torch.zeros(d, device=device)
-            layer["post_ln2"] = torch.zeros(d, device=device)
-        layers.append(layer)
-    return Transformer(cfg, {
+    weights = {
         "embed": embed_init(gen, (cfg.padded_vocab, d), dtype, device),
         "final_norm": torch.zeros(d, device=device),
-        "layers": layers})
+        "layers": [init_layer(gen, cfg, kind, dtype, device)
+                   for kind in layer_kinds(cfg)]}
+    if cfg.num_vision_tokens:
+        weights["vision_proj"] = dense_init(gen, (d, d), dtype, device)
+    return Transformer(cfg, weights)
+
+
+def tensors_from_numpy(tree, device, idx: Optional[int] = None):
+    """A reference param pytree (numpy leaves) → the same tree of
+    tensors on ``device``; ``idx`` takes entry ``idx`` of every leaf's
+    leading (stacked) axis; rmsnorm ``{"scale": s}`` dicts become the
+    tensor ``s``.  Every leaf is copied, never shared with the caller's
+    buffers; numpy has no bfloat16, so ml_dtypes arrays go through
+    float32."""
+    if isinstance(tree, dict):
+        if set(tree) == {"scale"}:
+            return tensors_from_numpy(tree["scale"], device, idx)
+        return {k: tensors_from_numpy(v, device, idx)
+                for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if idx is not None:
+        arr = arr[idx]
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
 
 
 def params_from_jax(cfg: ArchConfig, np_params: dict,
@@ -172,58 +255,99 @@ def params_from_jax(cfg: ArchConfig, np_params: dict,
     """The reference's param pytree (leaves as numpy arrays) → the
     port's :class:`Transformer`.  Stacked ``periods["k{j}"]`` leaves
     unstack along their leading axis into layers ``p·|pattern| + j``;
-    ``tail{j}`` follows; rmsnorm ``{"scale": s}`` dicts become the
-    tensor ``s``.  A ``moe`` subtree comes across as it is, its router
-    in float32."""
+    ``tail{j}`` follows.  ``moe``, ``rec`` and ``cell`` subtrees and
+    ``vision_proj`` come across as they are, in their own dtypes."""
     check_supported(cfg)
-
-    def conv(tree, idx=None):
-        if isinstance(tree, dict):
-            if set(tree) == {"scale"}:
-                return conv(tree["scale"], idx)
-            return {k: conv(v, idx) for k, v in tree.items()}
-        arr = np.asarray(tree)
-        if idx is not None:
-            arr = arr[idx]
-        # numpy has no bfloat16: ml_dtypes arrays go through float32;
-        # every leaf is copied, never shared with the caller's buffers
-        if arr.dtype.name == "bfloat16":
-            return torch.from_numpy(arr.astype(np.float32)).to(
-                device=device, dtype=torch.bfloat16)
-        return torch.from_numpy(np.array(arr)).to(device)
-
     layers = []
-    P = len(cfg.pattern)
     for p in range(cfg.n_periods):
-        for j in range(P):
-            layers.append(conv(np_params["periods"][f"k{j}"], p))
+        for j in range(len(cfg.pattern)):
+            layers.append(tensors_from_numpy(np_params["periods"][f"k{j}"],
+                                             device, p))
     for j in range(len(cfg.tail_kinds)):
-        layers.append(conv(np_params[f"tail{j}"]))
-    return Transformer(cfg, {"embed": conv(np_params["embed"]["table"]),
-                             "final_norm": conv(np_params["final_norm"]),
-                             "layers": layers})
+        layers.append(tensors_from_numpy(np_params[f"tail{j}"], device))
+    weights = {"embed": tensors_from_numpy(np_params["embed"]["table"],
+                                           device),
+               "final_norm": tensors_from_numpy(np_params["final_norm"],
+                                                device),
+               "layers": layers}
+    if "vision_proj" in np_params:
+        weights["vision_proj"] = tensors_from_numpy(np_params["vision_proj"],
+                                                    device)
+    return Transformer(cfg, weights)
 
 
 # ============================ cache ============================================
 @dataclasses.dataclass
 class PagedKVCache:
-    """Per-layer K and V page pools, each (P, T, H_kv, dh)."""
+    """K and V page pools of each attention layer, (P, T, H_kv, dh), and
+    the state of each recurrent layer, ``{name: (lanes, ...)}`` in
+    float32; ``fresh`` holds one row of each state as a new sequence
+    starts it (zeros, and the xLSTM stabiliser m at −1e30)."""
 
     k: list[torch.Tensor]
     v: list[torch.Tensor]
+    state: list[dict[str, torch.Tensor]] = dataclasses.field(
+        default_factory=list)
+    fresh: list[dict[str, torch.Tensor]] = dataclasses.field(
+        default_factory=list)
+
+    def reset(self, lane: int) -> None:
+        """Row ``lane`` of every recurrent state back to its start."""
+        for state, fresh in zip(self.state, self.fresh):
+            for name, t in state.items():
+                t[lane] = fresh[name][0]
 
 
 def init_cache(cfg: ArchConfig, total_pages: int, page_tokens: int,
-               rt: Runtime = LOCAL, device="cuda") -> PagedKVCache:
+               rt: Runtime = LOCAL, device="cuda",
+               lanes: int = 1) -> PagedKVCache:
+    """Page pools for the attention layers and ``lanes`` rows of state
+    for the recurrent ones."""
+    kinds = layer_kinds(cfg)
     shape = (total_pages, page_tokens, cfg.num_kv_heads, cfg.head_dim)
-    n = len(layer_kinds(cfg))
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
     dt = rt.cache_dtype()
+    recurrent = [k for k in kinds if k not in ATTN_KINDS]
     return PagedKVCache(
-        k=[torch.zeros(shape, dtype=dt, device=device) for _ in range(n)],
-        v=[torch.zeros(shape, dtype=dt, device=device) for _ in range(n)])
+        k=[torch.zeros(shape, dtype=dt, device=device)
+           for _ in range(n_attn)],
+        v=[torch.zeros(shape, dtype=dt, device=device)
+           for _ in range(n_attn)],
+        state=[_STATE[k](lanes, cfg, device) for k in recurrent],
+        fresh=[_STATE[k](1, cfg, device) for k in recurrent])
 
 
 # ============================ trunk ============================================
+def embed_inputs(model: Transformer, tokens: torch.Tensor,
+                 extra_embed: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings, with ``extra_embed`` (B, N, d) patch embeddings
+    projected by ``vision_proj`` in front when given."""
+    x = embed(model.embed, tokens, scale_by_sqrt_dim=model.cfg.embed_scale)
+    if extra_embed is not None:
+        v = extra_embed.to(x.dtype) @ model.vision_proj
+        x = torch.cat([v, x], dim=1)
+    return x
+
+
+def _rows(lanes: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The state rows of x's B sequences: ``lanes``, or 0..B-1."""
+    if lanes is None:
+        return torch.arange(x.shape[0], device=x.device)
+    return lanes.to(device=x.device, dtype=torch.long)
+
+
+def _recurrent(layer: RecurrentBlock, x: torch.Tensor, cfg: ArchConfig,
+               state: dict, rows: torch.Tensor, decode: bool
+               ) -> torch.Tensor:
+    """Run a recurrent layer on the sequences of ``rows`` and write their
+    new state back into those rows."""
+    x, new = layer(x, cfg, {k: t[rows] for k, t in state.items()}, decode)
+    for k, t in state.items():
+        t[rows] = new[k]
+    return x
+
+
 def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     x = rmsnorm(model.final_norm, x)
@@ -233,30 +357,49 @@ def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, cache: PagedKVCache,
-            block_tables: torch.Tensor) -> torch.Tensor:
-    """(B,S) prompt tokens → (B,1,V_padded) last-position logits; every
-    layer's K/V for positions 0..S-1 is written into the pages that
-    ``block_tables`` (B, max_pages) names."""
+            block_tables: torch.Tensor, lanes: Optional[torch.Tensor] = None,
+            extra_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B,S) prompt tokens → (B,1,V_padded) last-position logits.
+
+    Every attention layer's K/V for positions 0..S-1 is written into the
+    pages that ``block_tables`` (B, max_pages) names.  Each recurrent
+    layer runs from the state in rows ``lanes`` (B,) (default 0..B-1;
+    the engine resets a row before a new prompt, as the reference starts
+    from a fresh cache) and leaves its final state there.  With
+    ``extra_embed`` (B, N, d) the sequence is the N projected patch
+    embeddings and then the S tokens, at positions 0..N+S-1, and its
+    pages must hold N+S tokens; decode continues at N+S."""
     cfg = model.cfg
-    x = embed(model.embed, tokens, scale_by_sqrt_dim=cfg.embed_scale)
-    for i, layer in enumerate(model.layers):
-        x = layer(x, cfg, lambda p, y, i=i, kind=layer.kind:
-                  attn.prefill_attention(p, y, cfg, kind, cache.k[i],
-                                         cache.v[i], block_tables))
+    x = embed_inputs(model, tokens, extra_embed)
+    rows = _rows(lanes, x)
+    for layer, j in zip(model.layers, model.slots):
+        if layer.kind in ATTN_KINDS:
+            x = layer(x, cfg, lambda p, y, j=j, kind=layer.kind:
+                      attn.prefill_attention(p, y, cfg, kind, cache.k[j],
+                                             cache.v[j], block_tables))
+        else:
+            x = _recurrent(layer, x, cfg, cache.state[j], rows, False)
     return _logits(model, x[:, -1:, :])
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, tokens: torch.Tensor,
                 cache: PagedKVCache, block_tables: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """tokens (B,1), sequence b's token at ``positions[b]`` → (B,1,V)
-    logits; one KV slot per sequence and layer written."""
+                positions: torch.Tensor,
+                lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B,1), sequence b's token at ``positions[b]`` with its
+    recurrent state in row ``lanes[b]`` (default b) → (B,1,V) logits;
+    one KV slot per sequence and attention layer written, each
+    recurrent state advanced one step."""
     cfg = model.cfg
-    x = embed(model.embed, tokens, scale_by_sqrt_dim=cfg.embed_scale)
-    for i, layer in enumerate(model.layers):
-        x = layer(x, cfg, lambda p, y, i=i, kind=layer.kind:
-                  attn.decode_attention(p, y, cfg, kind, cache.k[i],
-                                        cache.v[i], block_tables,
-                                        positions))
+    x = embed_inputs(model, tokens)
+    rows = _rows(lanes, x)
+    for layer, j in zip(model.layers, model.slots):
+        if layer.kind in ATTN_KINDS:
+            x = layer(x, cfg, lambda p, y, j=j, kind=layer.kind:
+                      attn.decode_attention(p, y, cfg, kind, cache.k[j],
+                                            cache.v[j], block_tables,
+                                            positions))
+        else:
+            x = _recurrent(layer, x, cfg, cache.state[j], rows, True)
     return _logits(model, x)

@@ -28,6 +28,18 @@ takes expert capacity from the live lanes above it.  Copying that would
 mean decoding stale lanes over a stale cache; the port keeps the
 active-lane decode, and equals the reference wherever every lane is
 active (``tests/test_torch_families.py`` shows both sides).
+
+Recurrent layers (rglru, mlstm, slstm) keep their state per lane, in
+row ``lane`` of the cache's state tensors: ``_start`` resets the row
+before the prompt's prefill, as the reference prefills into a fresh
+B=1 cache, and each decode step gathers and scatters the active lanes'
+rows.  Those layers treat every lane on its own, so for them the
+active-lane decode equals the reference's lane by lane, idle lanes or
+not.
+
+Encoder-decoder models are refused (fault C10, in the reference): the
+reference engine calls prefill without the encoder's frames, so its
+encoder gets none; whisper runs through the model's entry points.
 """
 from __future__ import annotations
 
@@ -56,6 +68,13 @@ class InferenceEngine:
                  gateway: Optional[Gateway] = None,
                  rt: Runtime = Runtime(), page_tokens: int = 16,
                  eos_id: Optional[int] = None) -> None:
+        if model.cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{model.cfg.name}: the engine serves decoder-only models; "
+                "an encoder-decoder prefill needs the encoder's frames, "
+                "which the engine, like the reference's, never passes "
+                "(ROADMAP fault C10); call the model's prefill and "
+                "decode_step with extra_embed=frames instead")
         self.model = model
         self.params = params
         self.device = params.device
@@ -70,7 +89,8 @@ class InferenceEngine:
             page_tokens=page_tokens,
             bytes_per_token=model.cfg.kv_bytes_per_token)
         self.cache = model.init_cache(self.kv_pages.total_pages,
-                                      page_tokens, rt, self.device)
+                                      page_tokens, rt, self.device,
+                                      lanes=slots)
         self.lanes = [Lane() for _ in range(slots)]
         self.queue: list[Request] = []
         self.finished: list[Request] = []
@@ -111,8 +131,10 @@ class InferenceEngine:
         self.kv_pages.allocate(req.request_id, req.input_len)
         tokens = torch.tensor([req.prompt_tokens], dtype=torch.long,
                               device=self.device)
-        logits = self.model.prefill(self.params, tokens, self.cache,
-                                    self._tables([req.request_id]))
+        self.cache.reset(lane_idx)
+        logits = self.model.prefill(
+            self.params, tokens, self.cache, self._tables([req.request_id]),
+            lanes=torch.tensor([lane_idx], device=self.device))
         first = int(torch.argmax(logits[0, -1]))
         req.first_token_s = now
         req.output_tokens.append(first)
@@ -143,7 +165,8 @@ class InferenceEngine:
                                  dtype=torch.int32, device=self.device)
         logits = self.model.decode_step(
             self.params, tokens, self.cache,
-            self._tables([l.request.request_id for l in lanes]), positions)
+            self._tables([l.request.request_id for l in lanes]), positions,
+            lanes=torch.tensor(active, device=self.device))
         nxt = torch.argmax(logits[:, 0, :], dim=-1).tolist()
         produced = 0
         for lane, tok in zip(lanes, nxt):

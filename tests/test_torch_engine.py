@@ -144,11 +144,13 @@ def test_engine_matches_reference(models, seed, tps, evict):
 @pytest.mark.parametrize("arch", [
     pytest.param(None, id="default-qwen3-8b"), "deepseek-7b",
     "tinyllama-1.1b", "gemma2-2b", "gemma2-9b", "qwen3-moe-30b-a3b",
-    "qwen3-moe-235b-a22b"])
+    "qwen3-moe-235b-a22b", "recurrentgemma-2b", "xlstm-350m",
+    "internvl2-2b"])
 def test_serve_launcher_prints_the_same(monkeypatch, capsys, arch):
-    """The default arch (qwen3-8b) and each arch of the slice: 16
-    requests on 4 slots in full waves, so no lane is idle during a
-    decode (the engines differ there for MoE: fault C9)."""
+    """The default arch (qwen3-8b) and every other arch the engine
+    serves (whisper-small it cannot: fault C10): 16 requests on 4 slots
+    in full waves, so no lane is idle during a decode (the engines
+    differ there for MoE: fault C9)."""
     from repro.launch import serve as jax_serve
     from repro_torch.launch import serve as port_serve
     flags = [] if arch is None else ["--arch", arch]

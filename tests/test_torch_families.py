@@ -1,7 +1,10 @@
-"""The slice as a whole on the six architectures it adds, on the CPU:
+"""The model families beside the paper's dense model, on the CPU:
 ``deepseek-7b``, ``tinyllama-1.1b``, ``gemma2-2b``, ``gemma2-9b``
-(sliding-window layers, post norms, both softcaps, geglu) and
-``qwen3-moe-30b-a3b``, ``qwen3-moe-235b-a22b`` (MoE MLPs), each on its
+(sliding-window layers, post norms, both softcaps, geglu),
+``qwen3-moe-30b-a3b``, ``qwen3-moe-235b-a22b`` (MoE MLPs),
+``recurrentgemma-2b`` (RG-LRU layers and local attention, MQA),
+``xlstm-350m`` (mLSTM and sLSTM cells, no attention) and
+``internvl2-2b`` (the VLM backbone, served as text), each on its
 ``reduced()`` config.
 
 The JAX model's random-init parameters go to the port through
@@ -11,6 +14,10 @@ The JAX model's random-init parameters go to the port through
   reduced window of 32), then 24 decode steps crossing page boundaries.
   Tolerances as in ``tests/test_torch_models.py``: 1e-4 × max|logits|
   in float32 with a float32 KV cache, 2e-2 with a bfloat16 cache.
+  xlstm-350m has no KV cache, so its bfloat16-cache cases are held to
+  the float32 bound.
+* The VLM prefix: internvl2-2b's prefill with 8 patch embeddings in
+  front of the prompt, then decode from position S + 8.
 * The bfloat16 cache, against the reference's own rounding.  Both
   sides round K/V into the cache; the reference's dense decode
   (``repro/models/attention.py::attend``) also rounds the softmax
@@ -22,10 +29,12 @@ The JAX model's random-init parameters go to the port through
   port as it is no further from the reference's bfloat16-cache logits
   than those are from the reference's float32-cache logits on the same
   tokens (its own rounding drift).  Seeds 2-4 repeat the bfloat16 case
-  (``-s`` prints each run's three distances).
+  on the six global/local/MoE archs (``-s`` prints each run's three
+  distances).
 * The engine: TokenPool → Gateway → InferenceEngine in both packages,
-  float32, identical greedy tokens, states and timestamps.  Dense
-  models take seeded arrivals (lanes go idle and come back); MoE models
+  float32, identical greedy tokens, states and timestamps.  Dense and
+  recurrent models take seeded arrivals (lanes go idle and come back,
+  a recurrent lane with a fresh state); MoE models
   take full waves, so that every decode step has every lane active —
   the only case where the two engines agree for MoE (fault C9 below).
 * Fault C9 (in the reference): the JAX engine decodes every lane, idle
@@ -35,6 +44,7 @@ The JAX model's random-init parameters go to the port through
   capacity from a live lane above it.  The port decodes the active
   lanes only.  The test shows both sides of it.
 """
+import dataclasses
 import functools
 import importlib
 
@@ -65,7 +75,8 @@ _paged = importlib.import_module(
     "repro_torch.kernels.paged_attention.paged_attention")
 
 ARCHS = ["deepseek-7b", "tinyllama-1.1b", "gemma2-2b", "gemma2-9b",
-         "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b"]
+         "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b", "recurrentgemma-2b",
+         "xlstm-350m", "internvl2-2b"]
 MOE = ("qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b")
 CASES = {("float32", "float32"): 1e-4, ("float32", "bfloat16"): 2e-2}
 PAGE = 16
@@ -105,7 +116,9 @@ def no_launches():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_params_from_jax(arch):
-    cfg, _, jparams, _, port = models(arch)
+    """Every leaf comes across (count, and one stacked leaf of each
+    kind unstacked); the port's own init builds the same tree."""
+    cfg, _, jparams, model, port = models(arch)
     assert len(port.layers) == cfg.num_layers
     assert param_count(port) == sum(x.size for x in jax.tree.leaves(jparams))
     layer = port.layers[1]
@@ -115,10 +128,26 @@ def test_params_from_jax(arch):
         np.testing.assert_array_equal(
             layer.moe["w_up"].numpy(),
             np.asarray(jparams["periods"]["k0"]["moe"]["w_up"][1]))
-    else:
+    elif layer.kind in ("global", "local"):
         assert not layer.is_moe
     assert [b.kind for b in port.layers] == \
-        list(cfg.pattern) * cfg.n_periods
+        list(cfg.pattern) * cfg.n_periods + list(cfg.tail_kinds)
+    k1 = jparams["periods"]["k1"] if len(cfg.pattern) > 1 else None
+    if arch == "recurrentgemma-2b":
+        np.testing.assert_array_equal(
+            layer.rec["lambda"].numpy(), np.asarray(k1["rec"]["lambda"][0]))
+        np.testing.assert_array_equal(
+            port.layers[-1].rec["conv_w"].numpy(),
+            np.asarray(jparams["tail1"]["rec"]["conv_w"]))
+    if arch == "xlstm-350m":
+        np.testing.assert_array_equal(layer.cell["r_z"].numpy(),
+                                      np.asarray(k1["cell"]["r_z"][0]))
+    if cfg.num_vision_tokens:
+        np.testing.assert_array_equal(port.vision_proj.numpy(),
+                                      np.asarray(jparams["vision_proj"]))
+    fresh = model.init(torch.Generator().manual_seed(0), "cpu")
+    assert {n: (p.shape, p.dtype) for n, p in fresh.named_parameters()} == \
+        {n: (p.shape, p.dtype) for n, p in port.named_parameters()}
 
 
 def decode_as_reference(q, k_pages, v_pages, block_tables, context_lens,
@@ -164,7 +193,8 @@ def port_logits(arch, kv_dtype, tokens, fed):
     max_pages = (S + len(fed)) // PAGE + 1
     kv = KVBlockManager(total_pages=B * max_pages, page_tokens=PAGE)
     cache = model.init_cache(kv.total_pages, PAGE,
-                             Runtime(kv_cache_dtype=kv_dtype), "cpu")
+                             Runtime(kv_cache_dtype=kv_dtype), "cpu",
+                             lanes=B)
     for b in range(B):
         kv.allocate(f"s{b}", S)
 
@@ -200,7 +230,8 @@ def check_logits(arch, kv_dtype, seed, monkeypatch) -> None:
         0, cfg.vocab_size, (B, S)).astype(np.int32)
     ref, fed = jax_logits(arch, kv_dtype, tokens, steps)
     port = port_logits(arch, kv_dtype, tokens, fed)
-    if kv_dtype == "float32":
+    if kv_dtype == "float32" or not cfg.kv_bytes_per_token:
+        tol = CASES[("float32", "float32")]
         for t, (a, b) in enumerate(zip(port, ref)):
             assert_logits_close(a, b, tol, f"{arch} step {t} (0 = prefill)")
         return
@@ -229,9 +260,52 @@ def test_prefill_then_decode_logits(arch, kv_dtype, monkeypatch):
 
 
 @pytest.mark.parametrize("seed", [2, 3, 4])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS[:6])
 def test_bfloat16_cache_over_seeds(arch, seed, monkeypatch):
     check_logits(arch, "bfloat16", seed, monkeypatch)
+
+
+def test_vlm_prefix_then_decode():
+    """internvl2-2b: two prompts of 16 tokens behind 8 seeded patch
+    embeddings (positions 0-23), then 12 decode steps from position 24,
+    float32 cache."""
+    arch = "internvl2-2b"
+    cfg, jmodel, jparams, model, port = models(arch)
+    B, S, N, steps = 2, 16, cfg.num_vision_tokens, 12
+    r = np.random.default_rng(5)
+    tokens = r.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    patches = r.standard_normal((B, N, cfg.d_model)).astype(np.float32)
+    jrt = JaxRuntime(kv_cache_dtype="float32")
+    jdecode = jax.jit(lambda p, tok, c, i: jmodel.decode_step(p, tok, c, i,
+                                                              jrt))
+    jcache = jmodel.init_cache(B, N + S + steps + 1, jrt)
+    jlog, jcache = jmodel.prefill(jparams, jnp.asarray(tokens), jcache, jrt,
+                                  extra_embed=jnp.asarray(patches))
+    max_pages = (N + S + steps) // PAGE + 1
+    kv = KVBlockManager(total_pages=B * max_pages, page_tokens=PAGE)
+    cache = model.init_cache(kv.total_pages, PAGE,
+                             Runtime(kv_cache_dtype="float32"), "cpu")
+    for b in range(B):
+        kv.allocate(f"s{b}", N + S)
+
+    def tables():
+        return torch.from_numpy(np.stack([kv.block_table(f"s{b}", max_pages)
+                                          for b in range(B)]))
+
+    log = model.prefill(port, torch.from_numpy(tokens).long(), cache,
+                        tables(), extra_embed=torch.from_numpy(patches))
+    assert_logits_close(log, jlog, 1e-4, "prefill with the patch prefix")
+    for t in range(steps):
+        nxt = np.array(jnp.argmax(jlog[:, -1], axis=-1), np.int32)[:, None]
+        pos = N + S + t
+        for b in range(B):
+            kv.extend(f"s{b}", pos + 1)
+        jlog, jcache = jdecode(jparams, jnp.asarray(nxt), jcache,
+                               jnp.int32(pos))
+        log = model.decode_step(port, torch.from_numpy(nxt).long(), cache,
+                                tables(),
+                                torch.full((B,), pos, dtype=torch.int32))
+        assert_logits_close(log, jlog, 1e-4, f"decode step {t}")
 
 
 # -- the engine ----------------------------------------------------------------
@@ -262,9 +336,15 @@ def gateway(core, gw_mod, cfg, tps: float = 3000.0):
 
 
 def engine(side: str, arch: str, slots: int):
+    """The reference engine gets its model with ``prefill`` jitted, as
+    its decode step is: each prompt length then compiles once, where the
+    eager prefill compiles every op of it (RG-LRU's associative scan,
+    the xLSTM scans) anew for each length."""
     cfg, jmodel, jparams, model, port = models(arch)
     if side == "jax":
         pool, gw = gateway(J, JG, cfg)
+        jmodel = dataclasses.replace(
+            jmodel, prefill=jax.jit(jmodel.prefill, static_argnums=3))
         return pool, JS.InferenceEngine(
             jmodel, jparams, slots=slots, max_seq=cfg.max_seq_len,
             gateway=gw, rt=JaxRuntime(kv_cache_dtype="float32"))

@@ -167,18 +167,18 @@ def test_ragged_lanes_decode_at_their_own_positions():
 
 
 def test_unported_families_raise():
-    """The families the port does not run yet (recurrent rglru, mlstm
-    and slstm layers, encoder-decoder and VLM stacks) raise when the
-    model is built, naming the ROADMAP; MoE MLPs and local layers are
-    built."""
+    """Every family is ported now: each config of the reference builds
+    (reduced), with the module its family takes, and only a layer kind
+    neither package knows raises."""
     import dataclasses
-    cfg = get_config("qwen3-8b").reduced()
-    for bad in (dict(pattern=("rglru",)), dict(pattern=("mlstm",)),
-                dict(pattern=("global", "slstm")),
-                dict(is_encoder_decoder=True, encoder_layers=2),
-                dict(num_vision_tokens=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dataclasses.replace(cfg, **bad))
-    for ok in (dict(num_experts=4, experts_per_token=2),
-               dict(pattern=("local", "global"), num_layers=4)):
-        build_model(dataclasses.replace(cfg, **ok))
+    from repro.configs import all_configs
+    from repro_torch.models import EncoderDecoder, Transformer
+    for name in all_configs():
+        cfg = get_config(name).reduced()
+        params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                       "cpu")
+        assert isinstance(params, EncoderDecoder if cfg.is_encoder_decoder
+                          else Transformer), name
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        build_model(dataclasses.replace(get_config("qwen3-8b").reduced(),
+                                        pattern=("conv",)))
