@@ -45,16 +45,32 @@ each reported on its own line:
    invariant checker and its three-mode replay, on the card against
    the CPU, with the kernel's denials; ``admit_quantum`` launches
    counted by route in each part;
-6. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
+6. ``shard``   — the sharded control plane (``core.shard_plane``), its
+   ranks local processes of a gloo group that all use the one card:
+   ``benchmarks/shard_scale.py``'s cells (1,048,576, 4,194,304 and
+   16,777,216 rows on 1, 2, 4 and 8 ranks, one launch of ranks a size)
+   with ``shard_tick`` bit for bit equal to the flat ``control_tick`` on
+   the card, each cell's ms a tick, combines a tick and rows a rank;
+   one 65,536-request quantum over 16,777,216 rows (draw (a)) through
+   ``shard_admit_quantum`` on 1, 2 and 4 ranks equal to the flat kernel
+   and the plain version, every rank's replay one launch of the
+   ``rounds`` route; ``shard_plan_fleet`` equal to ``plan_fleet`` at
+   512 pools on 2 and 4 ranks; a ``shards=4`` pool equal to a flat one
+   (3 ticks and a 100-request ``handle_quantum``) on 2 ranks and in one
+   process; the rows one detach and one attach re-upload and the tick
+   ms of a 65,536-entitlement pool, flat and ``shards=8``; and the
+   ``churn_migration`` chaos scenario with ``shards: 4`` on every site
+   (0 violations, the card's trace equal to the CPU's);
+7. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
    full-depth Qwen3-8B (bf16, random init from ``--seed``) serving a
    guaranteed and a spot tenant; every flash launch on this path must
    take the tensor-core route and every paged launch the split kernel,
    and a reduced model served on the card must give the same greedy
    tokens as on the CPU;
-7. ``profile`` — a decode step and a prefill of 8 lanes on the same
+8. ``profile`` — a decode step and a prefill of 8 lanes on the same
    model, on the host clock and under ``torch.profiler`` (device time
    by kernel);
-8. ``families`` — after the kernel report, with Qwen3-8B freed: the
+9. ``families`` — after the kernel report, with Qwen3-8B freed: the
    paged kernel at the families' shapes (gemma2-9b's dh 256 / G 2 with
    window 4096 and softcap 50 over contexts 0-8,192, recurrentgemma-2b's
    dh 256 / G 10 with window 2048, G 16, G 8, internvl2-2b's G 2 and
@@ -80,7 +96,8 @@ each reported on its own line:
 Then a ``timer`` line gives each kernel, the kernel it replaced and the
 library call timed once more with the first port's serial timer (host
 time inside the window), one JSON line describes each kernel (launches
-on the serve path, error against the plain version, device times at
+on the serve path — and, for ``admit_quantum``, on the planner and
+shard phases — error against the plain version, device times at
 the path's shapes of the kernel, the kernel it replaced, its plain
 version and the library call, and the card's bound for that work; and
 one row per shape of the ``families`` phase), and the last line is
@@ -1365,7 +1382,425 @@ def phase_planner(torch, np, seed: int, card: str) -> dict:
     return launches
 
 
-# -- phase 6 -------------------------------------------------------------------
+# -- phase 6: the sharded control plane --------------------------------------------
+#: ``benchmarks/shard_scale.py``'s cells: its FULL_ROWS by its DEVICES
+SHARD_ROWS = (1_048_576, 4_194_304, 16_777_216)
+SHARD_SIZES = (1, 2, 4, 8)
+#: the sharded admission quantum: requests, rows, mesh sizes
+SHARD_ADMIT = (65_536, 16_777_216, (1, 2, 4))
+#: the sharded fleet plan: pools, mesh sizes
+SHARD_PLAN = (512, (2, 4))
+#: a launch of ranks that has not finished by then counts as a hang
+RANK_TIMEOUT_S = 480.0
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal shapes and equal words (floats as raw bits)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def same_words(np, xs, ys) -> bool:
+    """Host arrays pairwise equal in dtype, shape and every word (floats
+    as raw bits)."""
+    def words(x):
+        return x.view(np.int32) if x.dtype == np.float32 else x
+    return len(xs) == len(ys) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and np.array_equal(words(x), words(y)) for x, y in zip(xs, ys))
+
+
+def row_slice(state, lo: int, hi: int, dev: str):
+    """Rows [lo, hi) of a ``ControlState``, contiguous, on ``dev``."""
+    return type(state)(**{
+        f.name: getattr(state, f.name)[lo:hi].to(dev, copy=True)
+        for f in dataclasses.fields(state)})
+
+
+def shard_tick_inputs(torch, seed: int, n: int):
+    """``benchmarks/shard_scale.py``'s worker inputs at ``n`` rows, drawn
+    on the card from ``seed`` (the same draw on every rank): bound rows
+    of random class, baselines, SLOs, EWMAs, measured use and demand;
+    capacity 25 tokens/s a row, ℓ̄* 10 s."""
+    from repro_torch.core.control_plane import ControlState
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(lo, hi):
+        return torch.rand(n, generator=g, device="cuda") * (hi - lo) + lo
+
+    def ri(hi):
+        return torch.randint(0, hi, (n,), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    zeros = torch.zeros(n, device="cuda")
+    state = ControlState(
+        class_code=ri(5), bound=torch.ones(n, dtype=torch.bool,
+                                           device="cuda"),
+        baseline_tps=u(10, 100), baseline_kv=zeros,
+        baseline_conc=torch.full((n,), 8.0, device="cuda"),
+        slo_ms=u(100, 30000), burst=u(0, 0.5), debt=u(-0.1, 0.5))
+    cols = (u(0, 120), zeros, ri(8).float(), u(0, 200))
+    return (state, cols, torch.tensor(25.0 * n, device="cuda"),
+            torch.tensor(10_000.0, device="cuda"))
+
+
+def shard_admit_inputs(np, torch, seed: int, n: int, m: int):
+    """The ``quantum`` phase's draw (a) at ``n`` rows and ``m``
+    requests, in ``vectorized.admit_quantum``'s form, on the CPU:
+    (state, row columns with the Eq. 1 weights, requests, scalars)."""
+    from repro_torch.core.control_plane import ControlState
+    args, scal = admit_case(np, torch, np.random.RandomState(seed), n, m)
+    code, bound, bkv, bconc, w, level, infl, kvu = args[:8]
+    zeros = torch.zeros(n)
+    state = ControlState(class_code=code, bound=bound, baseline_tps=zeros,
+                         baseline_kv=bkv, baseline_conc=bconc,
+                         slo_ms=torch.ones(n), burst=zeros, debt=zeros)
+    rows = dict(bucket_level=level, in_flight=infl, kv_in_use=kvu,
+                weights=w)
+    reqs = dict(zip(("req_ent", "req_tokens", "req_kv", "req_live"),
+                    args[8:]))
+    kw = dict(pool_in_flight=int(scal["pool_in_flight"]),
+              pool_conc_cap=float(scal["pool_conc_cap"]),
+              running_min_priority=float(scal["running_min"]),
+              pool_avg_slo=1000.0, pool_resident=int(scal["pool_resident"]),
+              slack=0.0)
+    return state, rows, reqs, kw
+
+
+def shard_pool(core, shards, dev: str, n_ents: int = 37):
+    """A pool of ``n_ents`` entitlements of four classes on ``dev``
+    (flat store, or the sharded one with ``shards``)."""
+    pool = core.TokenPool(core.PoolSpec(
+        name="p", model="m", shards=shards,
+        scaling=core.ScalingBounds(1, 1),
+        per_replica=core.Resources(2000.0, float(1 << 40), 64.0)),
+        device=dev)
+    classes = (core.ServiceClass.GUARANTEED, core.ServiceClass.DEDICATED,
+               core.ServiceClass.ELASTIC, core.ServiceClass.SPOT)
+    for i in range(n_ents):
+        pool.add_entitlement(core.EntitlementSpec(
+            name=f"e{i}", tenant_id=f"t{i}", pool="p",
+            qos=core.QoS(service_class=classes[i % 4],
+                         slo_target_ms=100.0 + 10 * (i % 64)),
+            baseline=core.Resources(20.0 + i % 97, float(1 << 20), 4.0)))
+    return pool
+
+
+def shard_pool_drive(shards, dev: str) -> tuple:
+    """Three ticks, then one 100-request ``handle_quantum``: the pool's
+    columns name for name and the responses."""
+    import repro_torch.core as core
+    from repro_torch.gateway import Gateway, QuantumRequest
+    pool = shard_pool(core, shards, dev)
+    for t in (1.0, 2.0, 3.0):
+        pool.tick(t)
+    gw = Gateway(pool)
+    for i in range(37):
+        gw.register_route(f"k{i}", [("p", f"e{i}")])
+    out = gw.handle_quantum(
+        [QuantumRequest(api_key=f"k{i % 37}", request_id=f"r{i}",
+                        input_tokens=50, max_tokens=64 + 8 * (i % 5))
+         for i in range(100)], now=3.5)
+    c = pool.store.col
+    cols = {name: tuple(c[k][slot].item() for k in (
+        "burst", "debt", "eff_tps", "bucket_level", "in_flight",
+        "admitted_total", "denied_total"))
+        for name, slot in sorted(pool.store.slot_of.items())}
+    return cols, [(r.request_id, r.status, r.reason, r.priority)
+                  for r in out]
+
+
+def shard_rank(seed: int, rows: tuple, admit: bool, plan: bool,
+               pool: bool) -> dict:
+    """One rank of a ``shard`` phase launch; every rank uses the one
+    card.  Tick cells: this rank's block through ``shard_tick`` (one
+    warm-up, then 10 ticks on the host clock, each ending in a
+    synchronise), held bit for bit against the flat ``control_tick`` of
+    all rows on the card; then, as asked, the sharded admission quantum
+    (kernel launches counted by route around it), the sharded fleet
+    plan against ``plan_fleet``, and a sharded pool against a flat one."""
+    import numpy as np
+    import torch
+    from repro_torch.core import control_plane as cp
+    from repro_torch.core import shard_plane as sp
+    from repro_torch.core import vectorized as vz
+    mesh = sp.row_mesh()
+    out = {"mesh": (mesh.size, mesh.rank), "cells": []}
+    names = [f.name for f in dataclasses.fields(cp.ControlState)]
+    for n in rows:
+        state, cols, cap, slo = shard_tick_inputs(torch, seed, n)
+        lo, hi = mesh.block(n)
+        blk = row_slice(state, lo, hi, "cuda")
+        bcols = [c[lo:hi].clone() for c in cols]
+        got = sp.shard_tick(blk, cap, *bcols, slo, mesh=mesh)
+        times, combines = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            c0, t = mesh.combines, time.perf_counter()
+            sp.shard_tick(blk, cap, *bcols, slo, mesh=mesh)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+            combines.append(mesh.combines - c0)
+        ref = cp.control_tick(state, cap, *cols, slo)
+        equal = all(same_bits(torch, getattr(got[0], k),
+                              getattr(ref[0], k)[lo:hi]) for k in names)
+        equal &= all(same_bits(torch, g, r[lo:hi])
+                     for g, r in zip(got[1:], ref[1:]))
+        cell = dict(rows=n, rows_per_rank=hi - lo, equal=equal, ms=times,
+                    combines=combines)
+        if mesh.size == 1:              # the flat tick, for scale
+            flat = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                cp.control_tick(state, cap, *cols, slo)
+                torch.cuda.synchronize()
+                flat.append(1e3 * (time.perf_counter() - t))
+            cell["flat_ms"] = flat
+        out["cells"].append(cell)
+        del state, cols, blk, bcols, got, ref
+        torch.cuda.empty_cache()
+    if admit:
+        m, n, _ = SHARD_ADMIT
+        state, rws, reqs, kw = shard_admit_inputs(np, torch, seed, n, m)
+        lo, hi = mesh.block(n)
+        blk = row_slice(state, lo, hi, "cuda")
+        brows = {k: v[lo:hi].cuda() for k, v in rws.items()}
+        creqs = {k: v.cuda() for k, v in reqs.items()}
+        aq_mod = importlib.import_module(
+            "repro_torch.kernels.admit_quantum.admit_quantum")
+        scan, plain = aq_mod.admit_scan, aq_mod.reference_admit_scan
+        plain_on_cuda = [0]
+
+        def guarded(*a, **k):
+            plain_on_cuda[0] += int(a[8].is_cuda)
+            return plain(*a, **k)
+
+        aq_mod.reference_admit_scan = guarded
+        try:
+            def run():
+                return sp.shard_admit_quantum(blk, **brows, **creqs, **kw,
+                                              mesh=mesh)
+            scan.launches = 0
+            for k in scan.route_launches:
+                scan.route_launches[k] = 0
+            dec = run()
+            launches = dict(scan.route_launches, total=scan.launches,
+                            plain_on_cuda=plain_on_cuda[0])
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t))
+        finally:
+            aq_mod.reference_admit_scan = plain
+        out["admit"] = dict(decisions=[x.cpu().numpy() for x in dec],
+                            launches=launches, ms=times)
+        del blk, brows, creqs
+        torch.cuda.empty_cache()
+    if plan:
+        import repro_torch.core as core
+        from repro_torch.core.fleet import plan_fleet
+        p = SHARD_PLAN[0]
+        cfg = core.FleetPlannerConfig(demand_ewma=0.7, cooldown_ticks=3)
+        args = [torch.from_numpy(v).cuda() for v in
+                plan_inputs(np, seed + p, p).values()]
+        lo, hi = mesh.block(p)
+        got = sp.gather_rows(mesh, *sp.shard_plan_fleet(
+            *(a[lo:hi] for a in args), config=cfg, mesh=mesh))
+        ref = [x.cpu().numpy() for x in plan_fleet(*args, config=cfg)]
+        out["plan"] = same_words(np, got, ref)
+    if pool:
+        flat = shard_pool_drive(None, "cuda")
+        c0 = mesh.combines
+        sharded = shard_pool_drive(4, "cuda")
+        import repro_torch.core as core
+        out["pool"] = dict(
+            equal=flat == sharded, combines=mesh.combines - c0,
+            mesh=sp.pool_mesh(shard_pool(core, 4, "cuda")) is mesh)
+    return out
+
+
+def phase_shard(torch, np, seed: int, card: str) -> dict:
+    """The sharded control plane on the card (see the module
+    docstring).  Returns the sharded admission replay's
+    ``admit_quantum`` launches by route, summed over its ranks."""
+    import repro_torch.core as core
+    from repro_torch import chaos
+    from repro_torch.core import shard_plane as sp
+    from repro_torch.core import vectorized as vz
+    torch.cuda.empty_cache()
+    m, n_admit, admit_sizes = SHARD_ADMIT
+    runs = {}
+    for size in SHARD_SIZES:
+        t = time.perf_counter()
+        runs[size] = sp.launch_ranks(
+            shard_rank, size, seed, SHARD_ROWS, size in admit_sizes,
+            size in SHARD_PLAN[1], size == 2, timeout=RANK_TIMEOUT_S)
+        check([r["mesh"] for r in runs[size]]
+              == [(size, k) for k in range(size)],
+              f"shard: the ranks of a launch of {size} did not form one "
+              f"mesh: {[r['mesh'] for r in runs[size]]}")
+        print(f"shard launch: {size} ranks on the one card, "
+              f"{time.perf_counter() - t:.1f} s (start, every cell, "
+              "stop)")
+
+    # 1. the tick cells
+    lines = []
+    for size in SHARD_SIZES:
+        for k, n in enumerate(SHARD_ROWS):
+            cells = [r["cells"][k] for r in runs[size]]
+            check(all(c["equal"] for c in cells), f"shard: shard_tick at "
+                  f"{n} rows on {size} ranks differs from control_tick "
+                  "(state, allocations or weights)")
+            c0 = cells[0]
+            check(len(set(c0["combines"])) == 1,
+                  f"shard: combines a tick vary: {c0['combines']}")
+            flat = (f", flat control_tick {np.median(c0['flat_ms']):.3f} ms"
+                    if "flat_ms" in c0 else "")
+            lines.append(f"{n} rows x {size}: {np.median(c0['ms']):.3f} ms "
+                         f"a tick on rank 0, {c0['combines'][0]} combines a "
+                         f"tick, {c0['rows_per_rank']} rows a rank{flat}")
+    print("shard tick: shard_tick == control_tick bit for bit (state, "
+          "allocations, weights) in every cell; median of 10 ticks, host "
+          "clock, each ending in a synchronise; the ranks share one card, "
+          "so these times measure the collectives' overhead, not a "
+          "speed-up from sharding: " + "; ".join(lines) + f"; card {card}")
+
+    # 2. the sharded admission quantum against the flat kernel and the
+    # plain version
+    state, rows, reqs, kw = shard_admit_inputs(np, torch, seed, n_admit, m)
+    plain = [x.numpy() for x in vz.admit_quantum(state, **rows, **reqs,
+                                                 **kw)]
+    cstate = row_slice(state, 0, n_admit, "cuda")
+    crows = {k: v.cuda() for k, v in rows.items()}
+    creqs = {k: v.cuda() for k, v in reqs.items()}
+    flat = [x.cpu().numpy() for x in vz.admit_quantum(cstate, **crows,
+                                                      **creqs, **kw)]
+    flat_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vz.admit_quantum(cstate, **crows, **creqs, **kw)
+        torch.cuda.synchronize()
+        flat_ms.append(1e3 * (time.perf_counter() - t))
+    del cstate, crows, creqs
+
+    check(same_words(np, flat, plain), "shard: the flat admit_quantum kernel differs "
+          "from its plain version on the sharded quantum's draw")
+    launches = {"rounds": 0, "walk": 0, "serial": 0}
+    rows_out = []
+    for size in admit_sizes:
+        for r, res in enumerate(runs[size]):
+            a = res["admit"]
+            check(same_words(np, a["decisions"], flat), f"shard: shard_admit_quantum "
+                  f"on {size} ranks (rank {r}) differs from admit_quantum")
+            lc = a["launches"]
+            check(lc["rounds"] == 1 and lc["total"] == 1
+                  and lc["plain_on_cuda"] == 0, f"shard: the replay on "
+                  f"{size} ranks (rank {r}) launched {lc}, not one rounds "
+                  "kernel")
+            for k in launches:
+                launches[k] += lc[k]
+        rows_out.append(f"{size} ranks {np.median(runs[size][0]['admit']['ms']):.3f} ms")
+    admitted = int(flat[0].sum())
+    reasons = np.bincount(flat[1], minlength=5).tolist()
+    print(f"shard admit: {m} requests over {n_admit} rows (draw (a)): "
+          f"admit bits, reasons {reasons} ({admitted} admitted) and "
+          f"priorities of shard_admit_quantum identical to the flat "
+          f"kernel's and the plain version's at 1, 2 and 4 ranks; each "
+          f"rank's replay one launch of the rounds route, none serial, no "
+          f"plain call on CUDA tensors; rank 0's ms (median of 5, host "
+          f"clock): " + ", ".join(rows_out) + f"; flat kernel "
+          f"{np.median(flat_ms):.3f} ms; launches {launches}; card {card}")
+
+    # 3. the sharded fleet plan
+    for size in SHARD_PLAN[1]:
+        check(all(r["plan"] for r in runs[size]), f"shard: "
+              f"shard_plan_fleet on {size} ranks differs from plan_fleet")
+    print(f"shard plan: shard_plan_fleet == plan_fleet bit for bit at "
+          f"{SHARD_PLAN[0]} pools on {' and '.join(map(str, SHARD_PLAN[1]))} "
+          "ranks")
+
+    # 4. pools: two ranks, then one process
+    for r, res in enumerate(runs[2]):
+        check(res["pool"]["mesh"], f"shard: rank {r}: pool_mesh of a "
+              "shards=4 pool is not the 2-rank mesh")
+        check(res["pool"]["equal"], f"shard: rank {r}: the 2-rank sharded "
+              "pool differs from the flat pool (columns or responses)")
+    flat_run, sharded_run = (shard_pool_drive(s, "cuda") for s in (None, 4))
+    check(flat_run == sharded_run, "shard: a shards=4 pool differs from a "
+          "flat pool on the card (columns or responses)")
+    admitted = sum(s == 200 for _, s, _, _ in flat_run[1])
+
+    big, pools = {}, {}
+    for shards in (None, 8):
+        pool = pools[shards] = shard_pool(core, shards, "cuda", n_ents=65_536)
+        pool.tick(1.0)
+        st = pool.store
+        r0 = st.uploaded_rows
+        pool.remove_entitlement("e100", now=1.5)
+        st.device_state()
+        r1 = st.uploaded_rows
+        pool.add_entitlement(core.EntitlementSpec(
+            name="e100b", tenant_id="t", pool="p",
+            qos=core.QoS(service_class=core.ServiceClass.ELASTIC,
+                         slo_target_ms=500.0),
+            baseline=core.Resources(25.0, float(1 << 20), 4.0)))
+        st.device_state()
+        big[shards] = [r1 - r0, st.uploaded_rows - r1, [], st.capacity]
+    for k in range(12):             # in turns: flat, sharded, sharded, flat
+        for shards in ((None, 8) if k % 2 == 0 else (8, None)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pools[shards].tick(2.0 + k)
+            big[shards][2].append(1e3 * (time.perf_counter() - t))
+    for shards in (None, 8):
+        big[shards][2] = float(np.median(big[shards][2][2:]))
+    del pools
+    check(big[8][0] == big[8][1] == big[8][3] // 8,
+          f"shard: one detach/attach re-uploaded {big[8][:2]} rows of a "
+          f"shards=8 store, not one block of {big[8][3] // 8}")
+    print(f"shard pool: 2 ranks (pool_mesh non-None) and one process: "
+          f"shards=4 pool == flat pool, 3 ticks and a 100-request "
+          f"handle_quantum ({admitted} admitted) name for name; "
+          f"65,536 entitlements, rows re-uploaded by one detach / one "
+          f"attach and tick ms (median of 10 taken in turns, host clock, "
+          f"a tick includes the host fold and absorb): flat {big[None][0]} / "
+          f"{big[None][1]}, {big[None][2]:.3f} ms; shards=8 {big[8][0]} / "
+          f"{big[8][1]}, {big[8][2]:.3f} ms; card {card}")
+
+    # 5. the churn-and-migration scenario over sharded stores
+    sc = chaos.by_name("churn_migration")
+    sc = dataclasses.replace(sc, sites=tuple(
+        {**dict(s), "shards": 4} for s in sc.sites))
+    traces = {}
+    for dev in ("cuda", "cpu"):
+        rep = chaos.run_scenario(sc, device=dev)
+        check(rep["passed"], f"shard: sharded churn_migration on {dev}: "
+              f"{rep['violations'][:3]}")
+        sim = chaos.build_sim(sc, "quantum", True, device=dev)
+        check(all(isinstance(p.store, core.ShardedResidentStore)
+                  for p in sim.manager.pools.values()),
+              "shard: the scenario's stores are not sharded")
+        sim.run(sc.duration_s)
+        tr = chaos.capture_trace(sim, "quantum_fast")
+        traces[dev] = ({rid: dataclasses.astuple(o)
+                        for rid, o in tr.outcomes.items()},
+                       tr.flight_legs, tr.flight_priority)
+    check(traces["cuda"] == traces["cpu"], "shard: the sharded "
+          "churn_migration trace on the card differs from the CPU's")
+    print(f"shard chaos: churn_migration with shards=4 on every site: 0 "
+          f"violations under {len(rep['checkers'])} checkers on cuda and "
+          f"cpu, {len(traces['cuda'][0])} requests, the card's trace "
+          f"identical to the CPU's")
+    return launches
+
+
+# -- phase 7 -------------------------------------------------------------------
 def workload(np, seed: int, n: int, vocab: int):
     """Prompts of 32–512 tokens drawn from ``seed``, alternating
     tenants, one arrival every 0.25 simulated seconds."""
@@ -1661,7 +2096,7 @@ def phase_small_reference(torch, np, seed: int) -> None:
           "cpu (plain versions)")
 
 
-# -- phase 8 -----------------------------------------------------------------------
+# -- phase 9 -----------------------------------------------------------------------
 #: the slice's new kernel shapes: (label, H, H_kv, dh, window, softcap,
 #: contexts of the 8 lanes per batch); 16-token pages, bf16
 FAMILY_PAGED_CASES = [
@@ -2789,6 +3224,9 @@ def main(argv=None) -> int:
         admit_report = phase_quantum(torch, np, args.seed, card)
         phase = "planner"
         admit_report["launches_planner_phase"] = phase_planner(
+            torch, np, args.seed, card)
+        phase = "shard"
+        admit_report["launches_shard_phase"] = phase_shard(
             torch, np, args.seed, card)
         phase = "serve"
         served = phase_serve(torch, np, args.seed, args.requests)

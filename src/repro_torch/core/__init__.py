@@ -8,7 +8,10 @@ path uses:
   batched multi-pool tick), plus the scalar test oracle
 - priority: Eq. (1)-(3) scalar math
 - resident: ResidentStore — the structure-of-arrays that OWNS each
-  pool's control-plane state, mirrored on the pool's device
+  pool's control-plane state, mirrored on the pool's device — and
+  ShardedResidentStore (per-shard free lists and mirror blocks)
+- shard_plane: the tick, admission quantum and fleet plan with the row
+  axis split over the ranks of a ``torch.distributed`` group
 - pool: TokenPool controller (stateful shell over the control plane)
 - pool_manager: PoolManager (batched fleet tick, spill-over routing,
   completion attribution, fleet planning and entitlement migration)
@@ -49,7 +52,11 @@ from repro_torch.core.request_table import (
     InFlightRow,
     RequestTable,
 )
-from repro_torch.core.resident import ResidentStatus, ResidentStore
+from repro_torch.core.resident import (
+    ResidentStatus,
+    ResidentStore,
+    ShardedResidentStore,
+)
 from repro_torch.core.pool import (
     EntitlementMigration,
     SettleBatch,
@@ -109,6 +116,7 @@ __all__ = [
     "QuantumSnapshot", "RebalanceProposal", "RequestTable",
     "ResidentStatus", "ResidentStore", "Resources", "RouteEntry",
     "RowBucket", "ScaleDecision", "ScalingBounds", "ServiceClass",
+    "ShardedResidentStore",
     "SettleBatch", "StateStore", "TickInputs", "TickRecord",
     "TokenBucket", "TokenPool", "VirtualNode", "VirtualNodeProvider",
     "admit_quantum", "arrays_from_pool", "as_manager",

@@ -19,7 +19,10 @@ transcription differs in the last bit; :func:`fma` reproduces them:
 
 Pool-level aggregates reduce with the same positional binary tree as
 the reference (:func:`tree_sum`), never with ``torch.sum``'s
-backend-chosen order.  The water-fill loop is a Python loop with the
+backend-chosen order.  With ``mesh=`` (a ``shard_plane.RowMesh``) the
+rows are one rank's block and the block roots combine across the ranks
+through the top of the same tree, which is how ``shard_plane`` runs
+this very tick body sharded.  The water-fill loop is a Python loop with the
 reference ``while_loop``'s condition; on a CUDA tensor each round reads
 its condition back to the host.  With a leading pool axis it runs while
 ANY pool is still active and freezes the pools that are done, as the
@@ -140,6 +143,9 @@ def ewma(prev: torch.Tensor, x: torch.Tensor, gamma: float) -> torch.Tensor:
 # Pool-level aggregates reduce the row axis with a FIXED binary tree
 # over the pow2-padded rows: the pairing depends only on element
 # POSITION, exactly as in the reference, so sums agree bit for bit.
+# Any contiguous pow2 blocking of the rows computes the same partials:
+# per-rank subtrees plus the top tree over the gathered block roots IS
+# the full single-device tree, so a row mesh changes no bit.
 
 def _pairwise(x: torch.Tensor, op) -> torch.Tensor:
     """Reduce the trailing (pow2) axis with positional pairing."""
@@ -156,46 +162,64 @@ def _pad_pow2(x: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
-def tree_sum(x: torch.Tensor) -> torch.Tensor:
+def _trees(mesh, *reductions) -> list[torch.Tensor]:
+    """One positional-tree reduction of the (pow2-padded) row axis per
+    ``(x, op)`` pair.  With a row mesh each local root is one rank's
+    subtree; the roots of all the pairs cross the ranks in ONE combine
+    (rank order = block order) and are paired on up."""
+    roots = [_pairwise(_pad_pow2(x), op) for x, op in reductions]
+    if mesh is None:
+        return roots
+    return [_pairwise(g, op) for g, (_, op)
+            in zip(mesh.gather_roots(*roots), reductions)]
+
+
+def tree_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Binary-tree sum over the row axis; non-pow2 widths pad with
     zeros (exact for adds)."""
-    return _pairwise(_pad_pow2(x), torch.add)
+    return _trees(mesh, (x, torch.add))[0]
 
 
-def tree_any(x: torch.Tensor) -> torch.Tensor:
+def tree_any(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Binary-tree logical-or over the row axis (pad with False)."""
-    return _pairwise(_pad_pow2(x), torch.logical_or)
+    return _trees(mesh, (x, torch.logical_or))[0]
 
 
-def tree_count(x: torch.Tensor) -> torch.Tensor:
+def tree_count(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Row count of a bool mask as int32 (integer adds are exact, so
     any order agrees — the tree keeps the structure uniform)."""
-    return tree_sum(x.to(torch.int32))
+    return tree_sum(x.to(torch.int32), mesh)
 
 
 def waterfill_rows(capacity: torch.Tensor, want: torch.Tensor,
-                   weight: torch.Tensor,
-                   max_rounds: int = 32) -> torch.Tensor:
+                   weight: torch.Tensor, max_rounds: int = 32,
+                   mesh=None) -> torch.Tensor:
     """Priority-weighted progressive water-filling (tensor mirror of
     ``core.pool.waterfill``): the reference ``while_loop`` as a Python
     loop with the same ``cond``; converges in ≤ #distinct-caps rounds,
     bounded by ``max_rounds``.  ``capacity`` is a per-pool scalar ([] or
     [P]); with a pool axis every pool keeps its own loop state, the loop
     runs while any pool's ``cond`` holds, and a pool whose ``cond``
-    failed keeps its state unchanged (``vmap`` of a ``while_loop``)."""
+    failed keeps its state unchanged (``vmap`` of a ``while_loop``).
+
+    With ``mesh`` the rows are one rank's block: every value the loop
+    condition reads (remaining, the round counter, any-active) comes
+    from combined tree reductions, so all ranks run the same rounds and
+    meet at the same collectives — two a round, each carrying every
+    reduction that is ready."""
     want = want.clamp_min(0.0)
     active = want > 1e-12
     alloc = torch.zeros_like(want)
     remaining = capacity.clamp_min(0.0)
     i = torch.zeros_like(remaining, dtype=torch.int32)
-    has_active = tree_any(active)
+    has_active = tree_any(active, mesh)
     while True:
         run = (remaining > 1e-9) & has_active & (i < max_rounds)
         if not bool(run.any()):
             return alloc
         w = torch.where(active, weight, 0.0)
-        total_w = tree_sum(w)
-        n_active = tree_count(active)
+        total_w, n_active = _trees(mesh, (w, torch.add),
+                                   (active.to(torch.int32), torch.add))
         total_w_safe = torch.where(total_w > 0.0, total_w, 1.0)
         share = torch.where(
             _rows(total_w > 0.0),
@@ -205,16 +229,17 @@ def waterfill_rows(capacity: torch.Tensor, want: torch.Tensor,
         room = want - alloc
         take = torch.where(active, torch.minimum(room, share), 0.0)
         new_alloc = alloc + take
-        new_remaining = remaining - tree_sum(take)
         # done when the share covered the remaining room — compare take
         # to room with a magnitude-scaled epsilon (f32-safe)
         newly_done = active & (take >= fma(-1e-6, want.clamp_min(1.0),
                                            room))
-        # scalar loop breaks when a round fills nobody
-        progress = tree_any(newly_done)
         new_active = active & ~newly_done
+        # scalar loop breaks when a round fills nobody (``progress``)
+        taken, progress, new_has_active = _trees(
+            mesh, (take, torch.add), (newly_done, torch.logical_or),
+            (new_active, torch.logical_or))
+        new_remaining = remaining - taken
         new_i = torch.where(progress, i + 1, max_rounds)
-        new_has_active = tree_any(new_active)
         # a pool whose cond failed keeps its state (vmap of while_loop)
         alloc = torch.where(_rows(run), new_alloc, alloc)
         active = torch.where(_rows(run), new_active, active)
@@ -224,8 +249,8 @@ def waterfill_rows(capacity: torch.Tensor, want: torch.Tensor,
 
 
 def allocate_rows(capacity: torch.Tensor, state: ControlState,
-                  weights: torch.Tensor,
-                  demand_tps: torch.Tensor) -> torch.Tensor:
+                  weights: torch.Tensor, demand_tps: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
     """Funding allocation with work conservation (the Table-1 ordering):
     protected funded at baseline (emergency-scaled if their *active* use
     exceeds capacity) → elastic demand-capped baselines water-filled →
@@ -235,7 +260,7 @@ def allocate_rows(capacity: torch.Tensor, state: ControlState,
     base_p = torch.where(protected, state.baseline_tps, 0.0)
     active_p = torch.minimum(base_p,
                              torch.where(protected, demand_tps, 0.0))
-    total_active_p = tree_sum(active_p)
+    total_active_p = tree_sum(active_p, mesh)
     emergency = total_active_p > capacity
     scale = torch.where(emergency,
                         capacity / total_active_p.clamp_min(1e-30), 1.0)
@@ -247,15 +272,15 @@ def allocate_rows(capacity: torch.Tensor, state: ControlState,
     want_e = torch.where(elastic,
                          torch.minimum(state.baseline_tps, demand_tps), 0.0)
     fill_e = waterfill_rows(remaining, want_e,
-                            torch.where(elastic, weights, 0.0))
+                            torch.where(elastic, weights, 0.0), mesh=mesh)
     alloc = alloc_p + fill_e
-    remaining = (remaining - tree_sum(fill_e)).clamp_min(0.0)
+    remaining = (remaining - tree_sum(fill_e, mesh)).clamp_min(0.0)
 
     burst_ok = live & _lookup(BURSTOK_MASK, state.class_code)
     used = torch.where(protected, active_p, torch.minimum(alloc, demand_tps))
     want_b = torch.where(burst_ok, (demand_tps - used).clamp_min(0.0), 0.0)
     fill_b = waterfill_rows(remaining, want_b,
-                            torch.where(burst_ok, weights, 0.0))
+                            torch.where(burst_ok, weights, 0.0), mesh=mesh)
     return alloc + fill_b
 
 
@@ -263,15 +288,19 @@ def _tick_impl(state: ControlState, capacity_tps: torch.Tensor,
                measured_tps: torch.Tensor, used_kv: torch.Tensor,
                used_conc: torch.Tensor, demand_tps: torch.Tensor,
                avg_slo_ms: torch.Tensor, coeff: PriorityCoefficients,
+               mesh=None,
                ) -> tuple[ControlState, torch.Tensor, torch.Tensor]:
     """Tick body: burst EWMA → priority → allocation → debt EWMA (the
-    scalar controller's steps 2–5)."""
+    scalar controller's steps 2–5).  Shared by :func:`control_tick`,
+    :func:`control_tick_pools` and ``shard_plane.shard_tick`` (with
+    ``mesh``: the rows are one rank's block)."""
     delta = burst_delta_rows(measured_tps, used_kv, used_conc, state)
     burst = ewma(state.burst, delta, coeff.gamma_burst)
     s1 = dataclasses.replace(state, burst=burst)
 
     weights = priority_rows(s1, avg_slo_ms.clamp_min(1e-9), coeff)
-    alloc = allocate_rows(capacity_tps, s1, weights, demand_tps)
+    alloc = allocate_rows(capacity_tps, s1, weights, demand_tps,
+                          mesh=mesh)
 
     # Eq. 2 debt: underservice only counts against live demand, service
     # is the measured completion rate floored by demand-capped funding.

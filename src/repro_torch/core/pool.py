@@ -50,12 +50,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import control_plane, priority as prio
+from repro_torch.core import control_plane, priority as prio, shard_plane
 from repro_torch.core.control_plane import CLASS_CODES, ControlState
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.markers import hot_path
 from repro_torch.core.request_table import InFlight, InFlightMap, RequestTable
-from repro_torch.core.resident import ResidentStatus, ResidentStore, _DictView
+from repro_torch.core.resident import (ResidentStatus, ResidentStore,
+                                       ShardedResidentStore, _DictView)
 from repro_torch.core.types import (
     EntitlementSpec,
     EntitlementState,
@@ -275,12 +276,13 @@ class TokenPool:
         self.replicas = spec.scaling.min_replicas
         #: the resident structure-of-arrays — source of truth for every
         #: control-plane column (``core.resident``); its device mirror,
-        #: and so the tick, lives on ``device``
+        #: and so the tick, lives on ``device``; ``spec.shards`` opts
+        #: into the sharded facade (``core.shard_plane``)
         if spec.shards is not None and spec.shards > 1:
-            raise NotImplementedError(
-                "PoolSpec(shards=...) — the sharded control plane is "
-                "ROADMAP queue A, 'sharding'")
-        self.store = ResidentStore(device=device)
+            self.store = ShardedResidentStore(n_shards=spec.shards,
+                                              device=device)
+        else:
+            self.store = ResidentStore(device=device)
         #: the resident request table — source of truth for every
         #: in-flight record and outstanding charge
         #: (``core.request_table``)
@@ -361,8 +363,10 @@ class TokenPool:
                                 EntitlementState.DEGRADED):
                 continue
             bound = self.provider.is_bound(f"lease-{name}")
-            st.state = (EntitlementState.BOUND if bound
-                        else EntitlementState.DEGRADED)
+            state = (EntitlementState.BOUND if bound
+                     else EntitlementState.DEGRADED)
+            if st.state is not state:   # a write re-uploads its block
+                st.state = state
 
     def reserved_baseline(self) -> Resources:
         """Σ baselines the pool has promised to keep provisionable —
@@ -420,8 +424,10 @@ class TokenPool:
         c["baseline_conc"][slot] = espec.baseline.concurrency
         c["slo_ms"][slot] = espec.qos.slo_target_ms
         # Both callers later write st.state (which invalidates), but the
-        # mirror contract is per-write: statics land → mirror drops.
-        self.store.mark_dirty()
+        # mirror contract is per-write: statics land → the row's mirror
+        # drops (the whole mirror of a flat store, one block of a
+        # sharded one).
+        self.store.mark_dirty_slot(slot)
 
     def add_entitlement(self, espec: EntitlementSpec, now: float = 0.0
                         ) -> EntitlementState:
@@ -1069,13 +1075,15 @@ class TokenPool:
 
     @hot_path
     def _kernel_inputs(self) -> tuple:
-        """f32 device copies of the measurement columns (full width)."""
+        """f32 device copies of the measurement columns over the rows
+        the store mirrors (all of them but on a row mesh)."""
         c = self.store.col
         dev = self.store.device
-        return (torch.from_numpy(c["measured_tps"].astype(np.float32)).to(dev),
-                torch.from_numpy(c["kv_in_use"].astype(np.float32)).to(dev),
-                torch.from_numpy(c["resident"].astype(np.float32)).to(dev),
-                torch.from_numpy(c["demand_tps"].astype(np.float32)).to(dev))
+        lo, hi = self.store.mirror_rows()
+        return tuple(
+            torch.from_numpy(c[k][lo:hi].astype(np.float32)).to(dev)
+            for k in ("measured_tps", "kv_in_use", "resident",
+                      "demand_tps"))
 
     def begin_tick(self, now: float) -> TickInputs:
         """Measurement + compact gather: live rows only, in slot order
@@ -1140,16 +1148,19 @@ class TokenPool:
     @hot_path
     def _absorb_tick(self, now: float, new_state: ControlState,
                      alloc: np.ndarray, weights: np.ndarray,
-                     adopt_device: bool = True) -> TickRecord:
+                     adopt_device: bool = True,
+                     rows: Optional[tuple] = None) -> TickRecord:
         """Adopt FULL-WIDTH kernel outputs as the new resident truth:
         burst/debt columns sync from the output state (free slots see
         zero inputs and stay zero), allocations land in the effective
         column, and ONE vectorized ledger row-op re-rates every live
-        bucket.  No per-row Python."""
+        bucket.  No per-row Python.  After a sharded tick ``new_state``
+        is this rank's block and ``rows`` the full (burst, debt)
+        columns gathered from every rank (``shard_plane.gather_rows``)."""
         s = self.store
         c = s.col
         if adopt_device:
-            s.adopt_device(new_state)
+            s.adopt_device(new_state, rows)
         else:
             c["burst"][:] = new_state.burst.cpu().numpy()
             c["debt"][:] = new_state.debt.cpu().numpy()
@@ -1186,17 +1197,28 @@ class TokenPool:
         over the resident arrays: vectorized window fold → one
         ``control_tick`` at the store's (pow2) width on the store's
         device → vectorized absorb.  Free slots ride along as inert
-        unbound rows."""
+        unbound rows.  A sharded store on a row mesh ticks its rank's
+        block with ``shard_tick`` (bit-identical decisions: the tick's
+        tree reductions decompose exactly across rank blocks) and
+        gathers the full rows the host truth needs."""
         self._measure(now)
         measured, used_kv, used_conc, demand = self._kernel_inputs()
         dev = self.store.device
-        new_state, alloc, weights = control_plane.control_tick(
-            self.store.device_state(),
-            torch.tensor(self.capacity().tokens_per_second,
-                         dtype=torch.float32, device=dev),
-            measured, used_kv, used_conc, demand,
-            torch.tensor(self.pool_avg_slo(), dtype=torch.float32,
-                         device=dev),
-            coeff=self.spec.coefficients)
-        return self._absorb_tick(now, new_state, alloc.cpu().numpy(),
-                                 weights.cpu().numpy())
+        args = (self.store.device_state(),
+                torch.tensor(self.capacity().tokens_per_second,
+                             dtype=torch.float32, device=dev),
+                measured, used_kv, used_conc, demand,
+                torch.tensor(self.pool_avg_slo(), dtype=torch.float32,
+                             device=dev))
+        mesh = shard_plane.pool_mesh(self)
+        if mesh is None:
+            new_state, alloc, weights = control_plane.control_tick(
+                *args, coeff=self.spec.coefficients)
+            return self._absorb_tick(now, new_state, alloc.cpu().numpy(),
+                                     weights.cpu().numpy())
+        new_state, alloc, weights = shard_plane.shard_tick(
+            *args, coeff=self.spec.coefficients, mesh=mesh)
+        burst, debt, alloc, weights = shard_plane.gather_rows(
+            mesh, new_state.burst, new_state.debt, alloc, weights)
+        return self._absorb_tick(now, new_state, alloc, weights,
+                                 rows=(burst, debt))

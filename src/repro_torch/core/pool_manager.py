@@ -30,7 +30,7 @@ from typing import Iterable, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import control_plane
+from repro_torch.core import control_plane, shard_plane
 from repro_torch.core.control_plane import ControlState
 from repro_torch.core.markers import hot_path
 from repro_torch.core.pool import InFlight, TickRecord, TokenPool
@@ -334,14 +334,19 @@ class PoolManager:
         is padded to the group's (pow2) width — free slots and padding
         are both inert unbound rows — and the outputs are absorbed back
         into each store with vectorized row ops.  A group of one pool
-        runs that pool's own ``tick``.  No per-entitlement Python
+        runs that pool's own ``tick``, and so does a sharded pool on a
+        row mesh (``shard_plane.pool_mesh``).  No per-entitlement Python
         anywhere on this path."""
         groups: dict[object, list[TokenPool]] = {}
+        records: dict[str, TickRecord] = {}
         for pool in self.pools.values():
+            if shard_plane.pool_mesh(pool) is not None:
+                # its mirror is one rank's row block: it ticks alone
+                records[pool.spec.name] = pool.tick(now)
+                continue
             groups.setdefault((pool.spec.coefficients, pool.store.device),
                               []).append(pool)
 
-        records: dict[str, TickRecord] = {}
         for (coeff, dev), group in groups.items():
             if len(group) == 1:
                 pool = group[0]

@@ -21,7 +21,11 @@ the store's device.  :class:`ResidentStore` owns the pool's state:
   * the kernel-facing float32 columns are mirrored as a cached device
     ``ControlState``; Python-side writes invalidate the cache, the
     tick re-adopts its own device outputs, so steady-state ticking
-    uploads nothing row-by-row.
+    uploads nothing row-by-row;
+  * :class:`ShardedResidentStore` partitions the rows into equal pow2
+    shards with their own free lists and mirror blocks, so churn
+    re-uploads one block; on a row mesh (``core.shard_plane``) each
+    rank mirrors only its own blocks.
 
 dtype discipline: columns feeding the f32 kernels (baselines, SLO,
 burst, debt) are stored as float32 — numerically identical to the old
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.control_plane import CLASS_CODES, ControlState, bucket_width
+from repro_torch.core.shard_plane import store_mesh
 from repro_torch.core.types import EntitlementState, EntitlementStatus, Resources
 
 #: EntitlementState <-> int8 codes for the ``state_code`` column.
@@ -135,6 +140,10 @@ class ResidentStore:
         #: ``Ledger.enable_level_audit`` — sanctioned bucket_level
         #: mutators notify it so conservation checkers can diff
         self.level_audit = None
+        #: mirror uploads: whole-mirror rebuilds and rows sent to the
+        #: device in all
+        self.full_uploads = 0
+        self.uploaded_rows = 0
 
     # -- slot lifecycle -------------------------------------------------------
     def __len__(self) -> int:
@@ -224,9 +233,10 @@ class ResidentStore:
         if self._device is None:
             return {}
         dev = self._device
+        lo, hi = self.mirror_rows()
         out: dict[str, float] = {}
         for name in _MIRRORED:
-            host = self.col[name]
+            host = self.col[name][lo:hi]
             mirror = getattr(dev, name).cpu().numpy()
             out[name] = float(np.max(np.abs(
                 mirror.astype(np.float64) - host.astype(np.float64))))
@@ -245,24 +255,37 @@ class ResidentStore:
         return self._live_names
 
     # -- device mirror --------------------------------------------------------
+    def mirror_rows(self) -> tuple[int, int]:
+        """[lo, hi) of the slots this process mirrors on its device."""
+        return 0, self.capacity
+
+    def _upload(self, lo: int, hi: int) -> ControlState:
+        c = self.col
+        self.uploaded_rows += hi - lo
+        return ControlState(**{
+            f.name: torch.from_numpy(c[f.name][lo:hi].copy()).to(self.device)
+            for f in dataclasses.fields(ControlState)})
+
     def device_state(self) -> ControlState:
-        """Kernel-facing ``ControlState`` over ALL slots (free slots are
-        inert unbound rows).  Cached: rebuilt only after host-side
-        writes; after a tick the kernel's own output state is adopted
-        via :meth:`adopt_device`, so steady-state ticking re-uploads
-        nothing."""
+        """Kernel-facing ``ControlState`` over the mirrored slots (all
+        of them but on a row mesh; free slots are inert unbound rows).
+        Cached: rebuilt only after host-side writes; after a tick the
+        kernel's own output state is adopted via :meth:`adopt_device`,
+        so steady-state ticking re-uploads nothing."""
         if self._device is None:
-            c = self.col
-            self._device = ControlState(**{
-                f.name: torch.from_numpy(c[f.name].copy()).to(self.device)
-                for f in dataclasses.fields(ControlState)})
+            self._device = self._upload(*self.mirror_rows())
+            self.full_uploads += 1
         return self._device
 
-    def adopt_device(self, state: ControlState) -> None:
+    def adopt_device(self, state: ControlState, rows=None) -> None:
         """Adopt a tick's output state as the device mirror and sync the
-        numpy burst/debt columns from it (two C-speed copies)."""
-        self.col["burst"][:] = state.burst.cpu().numpy()
-        self.col["debt"][:] = state.debt.cpu().numpy()
+        numpy burst/debt columns from it (two C-speed copies).  On a row
+        mesh ``state`` is this rank's block and ``rows`` holds the full
+        (burst, debt) host columns gathered from every rank."""
+        burst, debt = rows if rows is not None else (
+            state.burst.cpu().numpy(), state.debt.cpu().numpy())
+        self.col["burst"][:] = burst
+        self.col["debt"][:] = debt
         self._device = state
 
     # -- row <-> EntitlementStatus --------------------------------------------
@@ -302,6 +325,214 @@ class ResidentStore:
         v.completed_total = st.completed_total
         v.tokens_total = st.tokens_total
         v.created_at = st.created_at
+
+
+def _state_block(state: ControlState, lo: int, hi: int) -> ControlState:
+    """Device-side row slice of a ``ControlState`` (views, no upload)."""
+    return ControlState(**{
+        f.name: getattr(state, f.name)[lo:hi]
+        for f in dataclasses.fields(ControlState)})
+
+
+class ShardedResidentStore(ResidentStore):
+    """:class:`ResidentStore` partitioned into ``n_shards`` equal
+    contiguous row blocks — the host-side half of the sharded control
+    plane (``core.shard_plane``).
+
+    Same columns, same view objects, same ``slot_of`` surface — the
+    facade changes WHERE work lands, not what callers see:
+
+      * **per-shard free lists**: allocation picks the emptiest shard
+        and recycles within it, so entitlement churn touches exactly
+        one block and never crosses shards;
+      * **block-granular mirror invalidation**: ``mark_dirty_slot``
+        marks only the owning shard's block stale; ``device_state()``
+        re-uploads dirty blocks and concatenates them with the cached
+        clean ones device-side — attach/detach/migration of one row
+        re-uploads ``capacity/n_shards`` rows, not the pool
+        (``block_uploads`` / ``full_uploads`` / ``uploaded_rows``
+        counters pin this in tests);
+      * **rank-local mirror**: on a row mesh (``shard_plane.store_mesh``)
+        the host columns stay whole on every rank, but rank r mirrors,
+        uploads and re-uploads only the shards of its row block r, and
+        ``device_state()`` is that block;
+      * **slot stability**: shards are equal blocks of the CURRENT
+        capacity.  Growth doubles the whole store — slots never move
+        (every persistent view/row index stays valid) — and the
+        shard boundaries are recomputed with the free lists rebuilt,
+        an O(N) step on the already-O(N) grow path.
+
+    ``n_shards`` must be a power of two so shard blocks align with
+    the pow2 rank blocks of any ``row_mesh`` of size ≤ ``n_shards``
+    (the tree reductions are blocking-invariant, so ANY such mesh
+    yields bit-identical decisions — mesh size is decoupled from the
+    shard count)."""
+
+    def __init__(self, capacity: int = 8, n_shards: int = 4,
+                 device="cuda") -> None:
+        if n_shards < 1 or n_shards & (n_shards - 1):
+            raise ValueError(
+                f"n_shards must be a power of two, got {n_shards}")
+        super().__init__(max(capacity, n_shards), device=device)
+        self.n_shards = n_shards
+        #: global free list retired: per-shard LIFO lists own recycling
+        self._free = []
+        self._shard_free: list[list[int]] = []
+        self._rebuild_shard_free(list(range(self.capacity - 1, -1, -1)))
+        #: device ``ControlState`` blocks of the mirrored shards (None =
+        #: no block cache; their concatenation == the mirror)
+        self._device_blocks: Optional[dict[int, ControlState]] = None
+        self._dirty_shards: set[int] = set()
+        self.block_uploads = 0
+
+    @property
+    def shard_rows(self) -> int:
+        return self.capacity // self.n_shards
+
+    def shard_of(self, slot: int) -> int:
+        return slot // self.shard_rows
+
+    def shard_of_name(self, name: str) -> int:
+        """Owning shard of a resident entitlement (routing surface)."""
+        return self.shard_of(self.slot_of[name])
+
+    def local_shards(self) -> range:
+        """Shards this process mirrors: all, or on a row mesh the run
+        of shards in this rank's row block."""
+        mesh = store_mesh(self)
+        if mesh is None:
+            return range(self.n_shards)
+        k = self.n_shards // mesh.size
+        return range(mesh.rank * k, (mesh.rank + 1) * k)
+
+    def mirror_rows(self) -> tuple[int, int]:
+        local = self.local_shards()
+        return local.start * self.shard_rows, local.stop * self.shard_rows
+
+    def _rebuild_shard_free(self, free_desc: list[int]) -> None:
+        """Rebuild per-shard LIFO free lists from a descending global
+        free list (descending append ⇒ pop() yields ascending slots,
+        matching the flat store's initial recycle order)."""
+        rows = self.capacity // self.n_shards
+        self._shard_free = [[] for _ in range(self.n_shards)]
+        for slot in free_desc:
+            self._shard_free[slot // rows].append(slot)
+
+    def _pick_shard(self) -> Optional[int]:
+        """Emptiest shard (ties → lowest id): balanced residency keeps
+        per-rank work even across the mesh."""
+        best, best_free = None, 0
+        for s, fl in enumerate(self._shard_free):
+            if len(fl) > best_free:
+                best, best_free = s, len(fl)
+        return best
+
+    # -- slot lifecycle (shard-local churn) -----------------------------------
+    def allocate(self, name: str) -> int:
+        if name in self.slot_of:
+            raise ValueError(f"entitlement {name!r} already resident")
+        shard = self._pick_shard()
+        if shard is None:
+            self._grow()
+            shard = self._pick_shard()
+        slot = self._shard_free[shard].pop()
+        self.slot_of[name] = slot
+        self.name_of[slot] = name
+        for arr in self.col.values():          # recycled slots start clean
+            arr[slot] = 0
+        self.col["alive"][slot] = True
+        if self.level_audit is not None:
+            self.level_audit.note("lifecycle", slot)
+        self._membership_changed_shard(slot)
+        return slot
+
+    def release(self, name: str) -> int:
+        slot = self.slot_of.pop(name)
+        self.name_of[slot] = None
+        for arr in self.col.values():
+            arr[slot] = 0
+        self._shard_free[self.shard_of(slot)].append(slot)
+        if self.level_audit is not None:
+            self.level_audit.note("lifecycle", slot)
+        self._membership_changed_shard(slot)
+        return slot
+
+    def _grow(self) -> None:
+        old = self.capacity
+        kept = [s for fl in self._shard_free for s in fl]
+        super()._grow()                        # doubles arrays + capacity
+        self._free = []
+        # shard BOUNDARIES move (shard_rows doubled); slots do not —
+        # rebuild the free lists under the new mapping
+        self._rebuild_shard_free(
+            sorted(kept + list(range(old, self.capacity)), reverse=True))
+
+    def _membership_changed_shard(self, slot: int) -> None:
+        """Shard-local flavor of ``_membership_changed``: live caches
+        drop (they index the whole store) but the mirror goes stale
+        only in the owning shard's block."""
+        self._live_slots = None
+        self._live_names = None
+        self.mark_dirty_slot(slot)
+
+    def _membership_changed(self) -> None:
+        super()._membership_changed()
+        self._device_blocks = None
+        self._dirty_shards.clear()
+
+    # -- block-granular device mirror -----------------------------------------
+    def mark_dirty(self) -> None:
+        self._device = None
+        self._device_blocks = None
+        self._dirty_shards.clear()
+
+    def mark_dirty_slot(self, slot: int) -> None:
+        if self._device is not None:
+            # split the (clean) mirror into blocks before any goes
+            # stale — device-side slicing, no upload
+            rows = self.shard_rows
+            local = self.local_shards()
+            base = local.start * rows
+            self._device_blocks = {
+                s: _state_block(self._device, s * rows - base,
+                                (s + 1) * rows - base)
+                for s in local}
+            self._device = None
+        if self._device_blocks is None:
+            return                             # fully dirty: next build is full
+        shard = self.shard_of(slot)
+        if shard in self._device_blocks:       # another rank's block: its job
+            self._dirty_shards.add(shard)
+
+    def device_state(self) -> ControlState:
+        if self._device is not None or self._device_blocks is None:
+            return super().device_state()      # cached, or a full (re)build
+        rows = self.shard_rows
+        for s in sorted(self._dirty_shards):
+            self._device_blocks[s] = self._upload(s * rows, (s + 1) * rows)
+        self.block_uploads += len(self._dirty_shards)
+        self._dirty_shards.clear()
+        blocks = list(self._device_blocks.values())
+        self._device = ControlState(**{
+            f.name: torch.cat([getattr(b, f.name) for b in blocks])
+            for f in dataclasses.fields(ControlState)})
+        return self._device
+
+    def adopt_device(self, state: ControlState, rows=None) -> None:
+        super().adopt_device(state, rows)
+        self._device_blocks = None             # blocks stale; resliced lazily
+        self._dirty_shards.clear()
+
+    # -- audit surface --------------------------------------------------------
+    def row_accounting(self) -> dict:
+        return {
+            "capacity": self.capacity,
+            "live": len(self.slot_of),
+            "free": sum(len(fl) for fl in self._shard_free),
+            "alive_rows": int(np.count_nonzero(self.col["alive"])),
+            "n_shards": self.n_shards,
+            "shard_free": [len(fl) for fl in self._shard_free],
+        }
 
 
 def _col_property(col: str, py, *, dirty: bool = False):

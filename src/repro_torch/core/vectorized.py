@@ -173,18 +173,26 @@ def running_min_live(pool) -> float:
 
 
 def _running_min_f32(pool, weights: torch.Tensor,
-                     row_of: dict[str, int]) -> float:
+                     row_of: dict[str, int], mesh=None) -> float:
     """float32 twin of :func:`running_min_live`, evaluated on the SAME
     Eq. 1 weight array handed to ``admit_quantum`` — one computation
     serves both the seed and the kernel, so a request whose own
     entitlement sets the threshold ties bit-exactly.  Owner rows come
     straight off the request table's owner column (owner slots ARE
-    store row indices, which is what ``weights`` is indexed by)."""
+    store row indices, which is what ``weights`` is indexed by).  On a
+    row mesh ``weights`` is this rank's block: each rank takes the
+    minimum over its owners, then over the ranks (exact in any order)."""
     rows = pool.inflight_owner_slots()
     if not rows.size:
         return float("inf")
-    idx = torch.from_numpy(rows).to(weights.device)
-    return float(weights[idx].min())
+    if mesh is None:
+        idx = torch.from_numpy(rows).to(weights.device)
+        return float(weights[idx].min())
+    lo, hi = pool.store.mirror_rows()
+    rows = rows[(rows >= lo) & (rows < hi)] - lo
+    local = (weights[torch.from_numpy(rows).to(weights.device)].min()
+             if rows.size else weights.new_tensor(float("inf")))
+    return float(mesh.gather_roots(local)[0].min())
 
 
 @dataclasses.dataclass
@@ -194,7 +202,10 @@ class QuantumSnapshot:
     entitlement name → row index in the arrays; ``weights`` holds the
     Eq. 1 row weights (pass them back to ``admit_quantum`` so the
     kernel and the ``running_min_priority`` seed share one array).
-    Tensors are on the pool's device."""
+    Tensors are on the pool's device.  On a row mesh
+    (``shard_plane.pool_mesh``) ``state`` and ``weights`` are this
+    rank's row block (``pool.store.mirror_rows()``); the other arrays
+    stay full width."""
 
     names: list[str]
     row_of: dict[str, int]
@@ -214,6 +225,8 @@ def quantum_snapshot(pool, now: float) -> QuantumSnapshot:
     """Snapshot a ``TokenPool`` for one batched admission quantum.
     Pure read (see :func:`arrays_from_pool`): the state arrays are
     views of the pool's resident arrays — no per-row Python gather."""
+    # deferred: shard_plane replays quanta through this module
+    from repro_torch.core.shard_plane import pool_mesh
     state, levels, infl, kvu = arrays_from_pool(pool, now)
     row_of = dict(pool.store.slot_of)
     avg_slo = float(pool.pool_avg_slo())
@@ -232,6 +245,7 @@ def quantum_snapshot(pool, now: float) -> QuantumSnapshot:
         pool_in_flight=pool.pool_in_flight(),
         pool_resident=pool.total_resident(),
         pool_conc_cap=float(pool.capacity().concurrency),
-        running_min_priority=_running_min_f32(pool, weights, row_of),
+        running_min_priority=_running_min_f32(pool, weights, row_of,
+                                              pool_mesh(pool)),
         pool_avg_slo=avg_slo,
     )

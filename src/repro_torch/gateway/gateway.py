@@ -58,6 +58,7 @@ from repro_torch.core import (
     StateStore,
     TokenPool,
 )
+from repro_torch.core import shard_plane
 from repro_torch.core.control_plane import (
     bucket_width,
     pad_rows,
@@ -452,7 +453,9 @@ class Gateway:
         kernel on a CUDA pool, its plain version on a CPU pool.  Returns
         host-side (admitted, reasons, weights) trimmed to the live
         prefix.  The request axis is padded as the reference pads it
-        (``quantum_width``), so both replay the same padded quantum."""
+        (``quantum_width``), so both replay the same padded quantum.  A
+        sharded pool on a row mesh dispatches ``shard_admit_quantum`` on
+        its rank's block (the same decisions)."""
         width = quantum_width(m)
         row_width = bucket_width(snap.state.n_rows)
         dev = snap.bucket_level.device
@@ -464,11 +467,20 @@ class Gateway:
 
         live = np.zeros(width, bool)
         live[:m] = True
-        admitted, reasons, req_w = admit_quantum(
+        level, infl, kvu = snap.bucket_level, snap.in_flight, snap.kv_in_use
+        mesh = shard_plane.pool_mesh(pool)
+        admit_fn, admit_kw = admit_quantum, {}
+        if mesh is not None:
+            # the snapshot's state and weights are this rank's row block
+            lo, hi = pool.store.mirror_rows()
+            level, infl, kvu = level[lo:hi], infl[lo:hi], kvu[lo:hi]
+            admit_fn = shard_plane.shard_admit_quantum
+            admit_kw = {"mesh": mesh}
+        admitted, reasons, req_w = admit_fn(
             pad_state(snap.state, row_width),
-            pad_rows(snap.bucket_level, row_width),
-            pad_rows(snap.in_flight, row_width),
-            pad_rows(snap.kv_in_use, row_width),
+            pad_rows(level, row_width),
+            pad_rows(infl, row_width),
+            pad_rows(kvu, row_width),
             pool_in_flight=int(snap.pool_in_flight),
             pool_conc_cap=np.float32(snap.pool_conc_cap),
             running_min_priority=np.float32(snap.running_min_priority),
@@ -480,7 +492,8 @@ class Gateway:
             req_live=torch.from_numpy(live).to(dev),
             weights=pad_rows(snap.weights, row_width),
             coeff=pool.spec.coefficients,
-            slack=pool.spec.admission_slack)
+            slack=pool.spec.admission_slack,
+            **admit_kw)
         return (admitted.cpu().numpy()[:m], reasons.cpu().numpy()[:m],
                 req_w.cpu().numpy()[:m])
 

@@ -23,7 +23,9 @@ contributions are added in that order (in bf16 the order changes the
 rounding; ``index_add_`` on the card would add them in any order).
 
 ``moe_mlp_ep``, the reference's expert-parallel ``shard_map`` path with
-its two all-to-alls, is not ported (ROADMAP queue A.2, sharding).
+its two all-to-alls, is not ported (ROADMAP queue A.3, with the model
+sharding it needs: ``distributed/sharding.py``, ``launch/mesh.py`` and
+``Runtime``).
 """
 from __future__ import annotations
 

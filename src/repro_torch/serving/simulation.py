@@ -21,8 +21,8 @@ no-admission baseline mode.  ``telemetry=`` records every decision,
 completion, tick and incident into the telemetry plane; the multi-pool
 simulator's ``autoscale=True`` closes the fleet planner's loop (each
 accounting tick → ``Gateway.plan_quantum`` → provisioning with lag,
-draining, migrations).  Sharded pools (``PoolSite.shards``) wait for
-their slice (ROADMAP queue A) and raise.
+draining, migrations).  ``PoolSite.shards`` gives a pool the sharded
+resident store (``PoolSpec.shards``).
 """
 from __future__ import annotations
 
@@ -448,8 +448,9 @@ class PoolSite:
     #: ``autoscale=True`` the fleet starts at ``n_replicas`` live and
     #: the planner provisions up to this many.
     max_replicas: int = 0
-    #: resident-store shard count (0 → flat store; the sharded store,
-    #: ``PoolSpec.shards``, waits for its slice and raises)
+    #: resident-store shard count (0 → flat store; pow2 → sharded
+    #: store + ``shard_plane`` dispatch on a row mesh of ranks, see
+    #: ``PoolSpec.shards``)
     shards: int = 0
 
 

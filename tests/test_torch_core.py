@@ -225,6 +225,13 @@ def test_scalar_waterfill_identical(seed):
 
 
 def test_sharded_pool_spec_is_refused():
-    spec = dataclasses.replace(make_pool(T).spec, shards=4)
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """Only a shard count the sharded store cannot split evenly is
+    refused, as in the reference; ``shards=4`` builds the sharded store
+    (its parity is in ``tests/test_torch_sharded_store.py``)."""
+    spec = dataclasses.replace(make_pool(T).spec, shards=3)
+    with pytest.raises(ValueError, match="power of two"):
         T.TokenPool(spec, device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        J.TokenPool(dataclasses.replace(make_pool(J).spec, shards=3))
+    pool = T.TokenPool(dataclasses.replace(spec, shards=4), device="cpu")
+    assert isinstance(pool.store, T.ShardedResidentStore)

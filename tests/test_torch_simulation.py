@@ -171,15 +171,25 @@ def test_multi_pool_routing_identical(mode):
 
 
 def test_unported_options_raise():
-    """Only sharded pools still wait for their slice; the planner
-    (``autoscale=True``) and telemetry are ported (their parity is in
-    ``tests/test_torch_experiment3.py`` and ``test_torch_telemetry.py``)."""
+    """No option waits for a slice any more: the planner
+    (``autoscale=True``), telemetry and sharded pools are ported (their
+    parity is in ``tests/test_torch_experiment3.py``,
+    ``test_torch_telemetry.py`` and ``test_torch_sharded_store.py``).
+    What raises is what the reference refuses too: a shard count that
+    is not a power of two."""
     sim = routing_sim(T, TS, "quantum", device="cpu", autoscale=True,
                       telemetry=True)
     assert sim.manager.planner is not None and sim.telemetry is not None
     assert TS.ServingSimulator(list(sim.workloads.values()), telemetry=True,
                                device="cpu").telemetry is not None
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TS.MultiPoolSimulator(
-            sim.workloads.values(), [TS.PoolSite("east", shards=2)],
-            device="cpu")
+    def sites(shards):
+        return [dataclasses.replace(s, shards=shards)
+                for s in sim.sites.values()]
+
+    sharded = TS.MultiPoolSimulator(sim.workloads.values(), sites(2),
+                                    device="cpu")
+    assert all(isinstance(p.store, T.ShardedResidentStore)
+               for p in sharded.manager.pools.values())
+    with pytest.raises(ValueError, match="power of two"):
+        TS.MultiPoolSimulator(sim.workloads.values(), sites(3),
+                              device="cpu")
