@@ -91,13 +91,34 @@ each reported on its own line:
    model entry points (4 sequences of 1,500 frames, 32 decode steps,
    flash launches counted by call); and every configuration the engine
    serves, reduced in float32, with identical greedy tokens on the card
-   and the CPU, and reduced whisper-small at the model level.
+   and the CPU, and reduced whisper-small at the model level;
+10. ``train`` — last, after the families (every served model freed):
+   (a) full-width, full-depth tinyllama-1.1b (bf16 params, float32
+   moments) trained 8 steps on the launcher's batch of 8 × 256 tokens
+   through ``TrainLoop``, with ms a step, tokens/s, peak memory and one
+   step's busy share under ``torch.profiler``; the same run again with
+   a checkpoint every 4 steps, crashed after step 4 and resumed by a
+   new ``TrainLoop`` from the step-4 commit, its steps 4-7 held to the
+   uninterrupted run's losses; (b) 2 full-width steps with each
+   gradient compressor (int8, top-k) and their wire bytes; (c) the
+   reference's end-to-end example, ``python -m repro_torch.launch.train
+   --reduce 100m``, for 200 steps, its loss falling; (d) the step-8
+   checkpoint restored into a fresh model and served: a prefill of 4
+   prompts on the flash kernel's ``wgmma`` route (each layer's output
+   held to its plain version on the trained activations) and 16 greedy
+   decode steps on the split paged kernel, launches counted by route,
+   no plain version on CUDA tensors, the logits against
+   ``forward_train``'s no further than bf16's own drift from float32;
+   (e) reduced float32 tinyllama-1.1b trained 8 steps on the card and on
+   the CPU, and one train step of each reduced family of
+   ``tests/test_torch_train_families.py`` on both.
 
 Then a ``timer`` line gives each kernel, the kernel it replaced and the
 library call timed once more with the first port's serial timer (host
 time inside the window), one JSON line describes each kernel (launches
 on the serve path — and, for ``admit_quantum``, on the planner and
-shard phases — error against the plain version, device times at
+shard phases, for the attention kernels on the ``train`` phase's (d)
+— error against the plain version, device times at
 the path's shapes of the kernel, the kernel it replaced, its plain
 version and the library call, and the card's bound for that work; and
 one row per shape of the ``families`` phase), and the last line is
@@ -2136,6 +2157,15 @@ def limit_ratio(out, ref, atol: float, rtol: float) -> float:
     return float(((o - r).abs() / (atol + rtol * r.abs())).max())
 
 
+def value_scaled_ratio(out, ref, v) -> float:
+    """:func:`limit_ratio` at ``TOL_FAMILIES`` with the absolute term
+    scaled by the largest |v| (at least 1): an attention output is a
+    convex combination of V's rows, so its rounding scales with them
+    (``TOL_FAMILIES`` was set on unit-scale V)."""
+    s = max(float(v.float().abs().max()), 1.0)
+    return limit_ratio(out.float() / s, ref.float() / s, *TOL_FAMILIES)
+
+
 def family_kernel_checks(torch, seed: int) -> dict:
     """The paged kernel at the families' shapes (bf16, windows, G 1 to
     16, dh 64 to 256), flash at dh 256 with a window and a softcap
@@ -3079,6 +3109,453 @@ def phase_families(torch, np, seed: int) -> list:
     return family_kernel_rows(torch, seed, errs, served)
 
 
+# -- phase 10 ----------------------------------------------------------------------
+#: the training launcher's batch (8 sequences of 256 tokens) and the
+#: reference's train-loop test schedule: 8 steps, a checkpoint every 4,
+#: a crash after step 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CRASH = 8, 256, 8, 4
+#: steps of the reference's end-to-end example (``--reduce 100m``; its
+#: docstring runs 300, ~92 ms a step with set-up on an H100 at 700 W):
+#: what the phase's time allows
+TRAIN_100M_STEPS = 200
+#: resume against the uninterrupted run: the reference's own bound for
+#: its bit-exact resume
+RESUME_RTOL = 1e-5
+#: card against CPU in float32, reduced configs: one step's loss within
+#: 1e-5 and each gradient leaf within 1e-4 of its largest entry, the
+#: tolerances of tests/test_torch_train_loop.py and
+#: test_torch_train_families.py (1e-3 for whisper-small, as there, and
+#: for xlstm-350m, whose 40 exponential-gated steps in series reach
+#: 1.15e-4 on an H100 at 700 W); 8 steps' losses within 1e-2
+#: relative: Adam divides each gradient by its size, so a gradient at
+#: rounding noise (cuBLAS and the CPU sum in other orders) flips its
+#: step, and at the reference's init (fault C14) the model amplifies
+#: each flip (1.6e-3 by step 7 on an H100 at 700 W, 3.9e-5 at step 1)
+CARD_CPU_LOSS_RTOL, CARD_CPU_STEP_RTOL = 1e-2, 1e-5
+CARD_CPU_GRAD_TOL = {"whisper-small": 1e-3, "xlstm-350m": 1e-3}
+#: the families of tests/test_torch_train_families.py
+TRAIN_FAMILIES = ("gemma2-2b", "qwen3-moe-30b-a3b", "recurrentgemma-2b",
+                  "xlstm-350m", "internvl2-2b", "whisper-small")
+#: trained checkpoint through the kernels: prompts and decode steps
+TRAIN_PROMPTS, TRAIN_DECODE = 4, 16
+
+
+def profile_step(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: (device ms of its
+    kernels, wall ms, kernel launches, the five kernels with the most
+    device time as "name ms")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    check(dev, "train: torch.profiler recorded no device time")
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    top = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f}"
+                    for e in dev[:5])
+    return (sum(e.self_device_time_total for e in dev) / 1e3, wall,
+            sum(e.count for e in dev), top)
+
+
+def train_batch(torch, np, cfg, seed: int, dev: str, B=2, S=40):
+    """Seeded tokens and targets (and a VLM's patches or whisper's
+    frames) on ``dev``."""
+    r = np.random.default_rng(seed)
+    batch = {"tokens": r.integers(0, cfg.vocab_size, (B, S)),
+             "targets": r.integers(0, cfg.vocab_size, (B, S))}
+    if cfg.is_encoder_decoder:
+        batch["extra_embed"] = r.standard_normal((B, 24, cfg.d_model))
+    elif cfg.num_vision_tokens:
+        batch["extra_embed"] = r.standard_normal(
+            (B, cfg.num_vision_tokens, cfg.d_model))
+    return {k: torch.as_tensor(v, dtype=torch.float32 if v.dtype.kind == "f"
+                               else torch.int32, device=dev)
+            for k, v in batch.items()}
+
+
+def train_reference(torch, np, seed: int) -> str:
+    """(e) Reduced float32 tinyllama-1.1b trained 8 steps on the card and
+    on the CPU from the same weights; one train step of each reduced
+    family of ``tests/test_torch_train_families.py`` on both."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import build_model, param_tree
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.training.train_loop import TrainConfig, TrainLoop, \
+        make_train_step
+
+    cfg = get_config("tinyllama-1.1b").reduced(num_layers=2, vocab_size=256,
+                                               dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), "cpu")
+    data = SyntheticLMData(DataConfig(vocab_size=256, seq_len=32,
+                                      global_batch=4))
+    tc = TrainConfig(steps=8, checkpoint_every=100, log_every=1,
+                     optimizer=OptimizerConfig(lr=1e-2, warmup_steps=2,
+                                               total_steps=8))
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        loop = TrainLoop(model, data, tc, params=copy.deepcopy(params).to(dev),
+                         device=dev)
+        losses[dev] = [e["loss"] for e in loop.run()]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                     losses["cpu"]))
+    failed = []
+    if not (all(np.isfinite(losses["cuda"])) and worst <= CARD_CPU_LOSS_RTOL):
+        failed.append(f"reduced tinyllama losses on the card {losses['cuda']} "
+                      f"against the CPU {losses['cpu']}")
+    parts = [f"tinyllama-1.1b 8 steps, losses {losses['cpu'][0]:.4f} -> "
+             f"{losses['cpu'][-1]:.4f}, card/CPU differences "
+             + " ".join(f"{abs(a - b) / abs(b):.2g}" for a, b in
+                        zip(losses["cuda"], losses["cpu"])) + " relative"]
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch).reduced(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(seed), "cpu")
+        step = make_train_step(model, TrainConfig(optimizer=OptimizerConfig(
+            lr=1e-3, warmup_steps=0, total_steps=10)))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = copy.deepcopy(params).to(dev)
+            opt = adamw_init(param_tree(p))
+            _, opt, _, m = step(p, opt, None,
+                                train_batch(torch, np, cfg, seed, dev))
+            out[dev] = (m["loss"].item(), m["skipped"].item(),
+                        {T.key_of(k): T.stacked(v).cpu() for k, v in
+                         T.leaves_with_paths(opt.mu)})
+        (lc, sc, gc_), (lp, _, gp) = out["cuda"], out["cpu"]
+        tol = CARD_CPU_GRAD_TOL.get(arch, 1e-4)
+        floor = 1e-3 * max(float(g.abs().max()) for g in gp.values())
+        grad_err = max(float((gc_[k] - g).abs().max())
+                       / max(float(g.abs().max()), floor)
+                       for k, g in gp.items())
+        if not (np.isfinite(lc) and sc == 0.0
+                and abs(lc - lp) <= CARD_CPU_STEP_RTOL * abs(lp)
+                and grad_err <= tol):
+            failed.append(f"{arch} step on the card (loss {lc}, skipped {sc}) "
+                          f"against the CPU (loss {lp}); gradient "
+                          f"{grad_err:.3g} of its scale (limit {tol})")
+        parts.append(f"{arch} loss {lp:.4f} (card - cpu {lc - lp:+.2e}), "
+                     f"gradients within {grad_err:.2g} of scale")
+    check(not failed, "train reference: " + "; ".join(failed)
+          + " || " + "; ".join(parts))
+    return "; ".join(parts)
+
+
+def phase_train(torch, np, seed: int, card: str) -> dict:
+    """(a) full-width tinyllama-1.1b trained 8 steps, crashed after
+    step 4 and resumed from its checkpoint; (b) both compressors; (c)
+    the reference's ``--reduce 100m`` example; (d) the trained
+    checkpoint restored into a fresh model and served through the
+    kernels; (e) card against CPU.  Returns the (d) launches."""
+    import shutil
+
+    from repro_torch import tree as T
+    from repro_torch.checkpointing import latest_step, restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import build_model, param_count, param_tree
+    from repro_torch.training.grad_compress import CompressorConfig, \
+        compressed_bytes
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, TrainLoop
+
+    fa_mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
+    t_phase = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    ckdir = ROOT / "build" / "train_checkpoints"
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def fresh(s):
+        return model.init(torch.Generator(device="cuda").manual_seed(s),
+                          "cuda")
+
+    def timed(loop, ms):
+        step_fn = loop.step_fn
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step_fn(*a)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            return out
+        loop.step_fn = run
+
+    # (a) the uninterrupted run, then the crash and the resume
+    torch.cuda.reset_peak_memory_stats()
+    plain = TrainConfig(steps=TRAIN_STEPS, checkpoint_every=100,
+                        optimizer=opt, log_every=1)
+    loop = TrainLoop(model, data, plain, params=fresh(seed))
+    n_params = param_count(loop.params)
+    step_ms = []
+    timed(loop, step_ms)
+    ref = loop.run()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             data.global_batch_at(TRAIN_STEPS).items()}
+    prof = profile_step(torch, lambda: loop.step_fn(
+        loop.params, loop.opt_state, loop.err_state, batch))
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ck = TrainConfig(steps=TRAIN_STEPS, checkpoint_every=4,
+                     checkpoint_dir=str(ckdir), optimizer=opt, log_every=1)
+    loop = TrainLoop(model, data, ck, params=fresh(seed))
+    t = time.perf_counter()
+    try:
+        loop.run(crash_after_step=TRAIN_CRASH)
+        raise PhaseFailed("train: the injected crash did not happen")
+    except RuntimeError as e:
+        check("injected crash" in str(e), f"train: {e}")
+    crash_s = time.perf_counter() - t
+    check(latest_step(str(ckdir)) == TRAIN_CRASH,
+          f"train: newest commit {latest_step(str(ckdir))}, expected "
+          f"{TRAIN_CRASH}")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    loop = TrainLoop(model, data, ck, params=fresh(seed + 1))
+    resume_s = time.perf_counter() - t
+    check(loop.start_step == TRAIN_CRASH,
+          f"train: resumed at {loop.start_step}")
+    resumed = loop.run()
+    check([e["step"] for e in resumed] == list(range(TRAIN_CRASH,
+                                                     TRAIN_STEPS)),
+          f"train: resumed steps {[e['step'] for e in resumed]}")
+    check(latest_step(str(ckdir)) == TRAIN_STEPS, "train: no step-8 commit")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(resumed, ref[TRAIN_CRASH:])]
+    check(max(diffs) <= RESUME_RTOL,
+          f"train: resumed losses {[e['loss'] for e in resumed]} against "
+          f"{[e['loss'] for e in ref[TRAIN_CRASH:]]}")
+    check(all(np.isfinite(e["loss"]) and e["skipped"] == 0.0
+              for e in ref + resumed), "train: a non-finite or skipped step")
+    trained = {T.key_of(p): T.stacked(leaf).detach().clone() for p, leaf in
+               T.leaves_with_paths(param_tree(loop.params))}
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    dev_ms, wall_ms, n_kernels, top = prof
+    print(f"train (a): tinyllama-1.1b full width and depth ({cfg.num_layers} "
+          f"layers, d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, dh={cfg.head_dim}, d_ff={cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), {n_params / 1e9:.3f} B params {cfg.dtype}, "
+          f"moments float32; batch {TRAIN_BATCH} x {TRAIN_SEQ}; step "
+          f"{ms:.2f} ms (median of steps 1-{TRAIN_STEPS - 1}, host clock, "
+          f"synchronised; step 0 {step_ms[0]:.1f} ms), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; one step "
+          f"under torch.profiler {dev_ms:.2f} ms of kernels in {wall_ms:.2f} "
+          f"ms ({100 * dev_ms / wall_ms:.0f} % busy), {n_kernels} kernel "
+          f"launches, most device time in {top}; peak memory "
+          f"{peak_gb:.2f} GB; losses "
+          + " ".join(f"{e['loss']:.4f}" for e in ref)
+          + f"; crash after step {TRAIN_CRASH} ({crash_s:.1f} s with the "
+          f"step-{TRAIN_CRASH} checkpoint), resume {resume_s:.1f} s, steps "
+          f"{TRAIN_CRASH}-{TRAIN_STEPS - 1} "
+          + " ".join(f"{e['loss']:.4f}" for e in resumed)
+          + f", largest difference from the uninterrupted run "
+          f"{max(diffs):.3g} relative (limit {RESUME_RTOL}; "
+          f"{'bit for bit' if max(diffs) == 0 else 'not bit for bit'}); "
+          f"card {card}")
+
+    # (b) both compressors at full width
+    parts = []
+    for kind in ("int8", "topk"):
+        comp = CompressorConfig(kind=kind)
+        loop = TrainLoop(model, data, TrainConfig(
+            steps=2, checkpoint_every=100, optimizer=opt, compressor=comp,
+            log_every=1), params=fresh(seed))
+        kind_ms = []
+        timed(loop, kind_ms)
+        logs = loop.run()
+        check(all(np.isfinite(e["loss"]) and e["skipped"] == 0.0
+                  for e in logs), f"train (b): {kind} gave {logs}")
+        tree = param_tree(loop.params)
+        parts.append(
+            f"{kind}: losses {logs[0]['loss']:.4f} {logs[1]['loss']:.4f}, "
+            f"skipped 0, step {kind_ms[-1]:.1f} ms, wire bytes a step "
+            f"{compressed_bytes(tree, comp):.4g} of dense "
+            f"{compressed_bytes(tree, CompressorConfig('none')):.4g}")
+        del loop, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("train (b): full width, 2 steps each (topk ratio "
+          f"{CompressorConfig('topk').topk_ratio}): " + "; ".join(parts))
+
+    # (c) the reference's end-to-end example through the launcher
+    t = time.perf_counter()
+    logs = train_launch.main(["--arch", "tinyllama-1.1b", "--reduce", "100m",
+                              "--steps", str(TRAIN_100M_STEPS), "--device",
+                              "cuda", "--seed", str(seed)])
+    e2e_s = time.perf_counter() - t
+    first, last = logs[0]["loss"], logs[-1]["loss"]
+    check(last < first - 1.0,
+          f"train (c): --reduce 100m loss {first} -> {last} did not fall")
+    print(f"train (c): python -m repro_torch.launch.train --arch "
+          f"tinyllama-1.1b --reduce 100m --steps {TRAIN_100M_STEPS}: loss "
+          f"{first:.4f} -> {last:.4f} (accuracy {logs[0]['accuracy']:.4f} -> "
+          f"{logs[-1]['accuracy']:.4f}) in {e2e_s:.1f} s, "
+          f"{1e3 * e2e_s / TRAIN_100M_STEPS:.1f} ms a step with set-up")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the trained checkpoint through the kernels
+    params = fresh(seed + 2)
+    tree = param_tree(params)
+    restored = restore(str(ckdir), TRAIN_STEPS, {"params": tree})["params"]
+    with torch.no_grad():
+        for a, b in zip(T.tensors(tree), T.tensors(restored)):
+            a.copy_(b)
+    del restored
+    same = all(torch.equal(T.stacked(leaf), trained[T.key_of(p)])
+               for p, leaf in T.leaves_with_paths(tree))
+    check(same, "train (d): the restored params differ from the trained")
+    del trained
+    B, S, page = TRAIN_PROMPTS, TRAIN_SEQ, 16
+    mp = (S + TRAIN_DECODE) // page + 1
+    cache = model.init_cache(B * mp, page, device="cuda")
+    tables = torch.arange(B * mp, dtype=torch.int32, device="cuda") \
+        .view(B, mp)
+    tokens = torch.as_tensor(data.global_batch_at(1000)["tokens"][:B],
+                             device="cuda")
+    # each layer's kernel output on the trained activations against
+    # its plain version on the same inputs (these comparisons launch
+    # nothing), and flash against forward_train's dense attention
+    attn_mod = importlib.import_module("repro_torch.models.attention")
+    kernels = (attn_mod.flash_attention_bshd, attn_mod.paged_decode_attention)
+    plain = (fa_mod.reference_attention, pa_mod.reference_paged_attention)
+    ratios = {"flash": [], "paged": [], "dense": []}
+
+    def flash_held(q, k, v, causal=True, window=None, softcap=None):
+        out = kernels[0](q, k, v, causal=causal, window=window,
+                         softcap=softcap)
+        ref = plain[0](*(x.transpose(1, 2) for x in (q, k, v)),
+                       causal=causal, window=window,
+                       softcap=softcap).transpose(1, 2)
+        ratios["flash"].append(value_scaled_ratio(out, ref, v))
+        G = q.shape[2] // k.shape[2]
+        pos = torch.arange(q.shape[1], device=q.device)
+        dense = attn_mod.attend(q, attn_mod._repeat_kv(k, G),
+                                attn_mod._repeat_kv(v, G),
+                                attn_mod._mask_bias(pos, causal, window),
+                                softcap)
+        ratios["dense"].append(value_scaled_ratio(out, dense, v))
+        return out
+
+    def paged_held(q, kp, vp, bt, cl, softcap=None, window=None):
+        out = kernels[1](q, kp, vp, bt, cl, softcap=softcap, window=window)
+        ref = plain[1](q, kp, vp, bt, cl, softcap=softcap, window=window)
+        ratios["paged"].append(value_scaled_ratio(out, ref, vp))
+        return out
+
+    plain_on_cuda = {"flash": 0, "paged": 0}
+    saved = guard_plain(fa_mod, pa_mod, plain_on_cuda)
+    attn_mod.flash_attention_bshd = flash_held
+    attn_mod.paged_decode_attention = paged_held
+    try:
+        for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
+            fn.launches = 0
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+        prefill_logits = model.prefill(params, tokens, cache, tables)
+        logits, seq = prefill_logits, tokens
+        for i in range(TRAIN_DECODE):
+            nxt = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+            seq = torch.cat([seq, nxt], dim=1)
+            logits = model.decode_step(
+                params, nxt, cache, tables,
+                torch.full((B,), S + i, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        routes = {"flash": dict(fa_mod.flash_attention.route_launches),
+                  "paged": dict(pa_mod.paged_attention.route_launches)}
+    finally:
+        attn_mod.flash_attention_bshd, attn_mod.paged_decode_attention = \
+            kernels
+        fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
+    launches = {"flash_prefill": routes["flash"]["wgmma"],
+                "paged_decode": routes["paged"]["split"]}
+    # forward_train over the prompt and the generated tokens (position
+    # S-1 is the prefill's, the last the last decode step's), in bf16
+    # and on a float32 copy of the same weights: bf16's own drift
+    V = cfg.vocab_size
+    with torch.no_grad():
+        full = model.forward_train(params, seq)[..., :V].float()
+        full32 = model.forward_train(copy.deepcopy(params).float(),
+                                     seq)[..., :V]
+
+    def dist(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    finite = bool(torch.isfinite(prefill_logits[..., :V]).all()
+                  and torch.isfinite(logits[..., :V]).all())
+    agree = [float((x[:, S - 1:-1].argmax(-1) == seq[:, S:]).float().mean())
+             for x in (full, full32)]
+    print(f"train (d): step-{TRAIN_STEPS} checkpoint restored into a fresh "
+          f"model (bit for bit); {B} prompts of {S} tokens, then "
+          f"{TRAIN_DECODE} greedy decode steps; every layer's kernel output "
+          f"against its plain version on the same inputs, |err| <= "
+          f"{TOL_FAMILIES[0]}·max|v| + {TOL_FAMILIES[1]}·|ref|: flash "
+          f"({len(ratios['flash'])} prefill layers, wgmma) largest "
+          f"{max(ratios['flash']):.3g} of the limit, paged "
+          f"({len(ratios['paged'])} layer-steps, split) largest "
+          f"{max(ratios['paged']):.3g}; flash against forward_train's dense "
+          f"attention (bf16 softmax weights) {max(ratios['dense']):.3g}; "
+          f"end to end (not held: the model is chaotic at the reference's "
+          f"init, fault C14): prefill's last-position logits "
+          f"{dist(prefill_logits[:, 0, :V], full[:, S - 1]):.4g} from "
+          f"forward_train's (max |logit| {float(full[:, S - 1].abs().max()):.4g}),"
+          f" forward_train bf16 {dist(full[:, S - 1], full32[:, S - 1]):.4g} "
+          f"from its float32 copy; the last decode step "
+          f"{dist(logits[:, 0, :V], full[:, -1]):.4g} (bf16 against float32 "
+          f"{dist(full[:, -1], full32[:, -1]):.4g}); the greedy tokens are "
+          f"forward_train's argmax at {100 * agree[0]:.1f} % of positions "
+          f"in bf16, {100 * agree[1]:.1f} % in float32; launches by route "
+          f"{routes}; plain calls on CUDA {plain_on_cuda}")
+    check(finite and tuple(prefill_logits.shape) == (B, 1, cfg.padded_vocab),
+          "train (d): prefill logits not finite or of the wrong shape")
+    check(launches["flash_prefill"] == cfg.num_layers
+          and launches["paged_decode"] == cfg.num_layers * TRAIN_DECODE
+          and sum(routes["flash"].values()) == cfg.num_layers
+          and sum(routes["paged"].values()) == cfg.num_layers * TRAIN_DECODE,
+          f"train (d): launches {routes}")
+    check(not any(plain_on_cuda.values()),
+          f"train (d): plain versions on CUDA tensors {plain_on_cuda}")
+    check(len(ratios["flash"]) == cfg.num_layers
+          and len(ratios["paged"]) == cfg.num_layers * TRAIN_DECODE
+          and max(ratios["flash"] + ratios["paged"]) <= 1,
+          f"train (d): kernels against their plain versions {ratios}")
+    del full32
+    del params, tree, cache, full, prefill_logits, logits
+    shutil.rmtree(ckdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) card against CPU
+    print("train (e): card against CPU, float32: "
+          + train_reference(torch, np, seed))
+    print(f"train: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # -- kernel report ----------------------------------------------------------------
 def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     """Times of each kernel, of the kernel it replaced (``previous_ms``),
@@ -3240,10 +3717,15 @@ def main(argv=None) -> int:
         phase = "families"
         t_families = time.perf_counter()
         report.extend(phase_families(torch, np, args.seed))
+        phase = "train"
+        t_train = time.perf_counter()
+        train_launches = phase_train(torch, np, args.seed, card)
+        for row in report[:2]:            # flash and paged on (d)'s path
+            row["launches_train_phase"] = train_launches[row["name"]]
         card = card_line()
         now = time.perf_counter()
         print(f"seconds: {now - t0:.1f} in all, of them families "
-              f"{now - t_families:.1f}")
+              f"{t_train - t_families:.1f}, train {now - t_train:.1f}")
     except Exception:                     # noqa: BLE001 — report and fail
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)

@@ -7,6 +7,7 @@ from repro_torch.models.registry import (
     Model,
     build_model,
     param_count,
+    param_tree,
     params_from_jax,
 )
 from repro_torch.models.runtime import LOCAL, Runtime
@@ -14,4 +15,4 @@ from repro_torch.models.transformer import PagedKVCache, Transformer
 
 __all__ = ["ArchConfig", "EncDecCache", "EncoderDecoder", "LOCAL", "Model",
            "PagedKVCache", "Runtime", "Transformer", "build_model",
-           "param_count", "params_from_jax"]
+           "param_count", "param_tree", "params_from_jax"]

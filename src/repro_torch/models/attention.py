@@ -14,6 +14,13 @@ walks.  Both kernels dispatch on the tensors' device: CUDA tensors go
 through the hand-written kernels, CPU tensors through their plain
 versions.
 
+Training takes neither kernel (they have no backward, as the Pallas
+kernels have none): :func:`attention_block` and the ``train=True``
+encoder and cross blocks are the reference's dense ``attend`` — f32
+logits and softmax, the weights rounded to ``v``'s dtype before the
+PV product, GQA by repeating each K/V head — in plain torch ops under
+autograd.
+
 ``local`` layers (gemma2, recurrentgemma) pass ``cfg.window_size`` to
 both kernels.  The reference keeps a ring buffer of ``window`` slots
 for them; here they write the same pages as global layers (one block
@@ -28,7 +35,10 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, softcap
+
+#: the additive bias of a masked logit (the reference's ``_mask_bias``)
+MASKED = -2.38e38
 
 
 def init_attention(gen: torch.Generator, cfg, dtype, device) -> dict:
@@ -66,6 +76,54 @@ def _out(params, o: torch.Tensor) -> torch.Tensor:
     B, S = o.shape[:2]
     wo = params["wo"]
     return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+# -- training: the reference's dense attention -------------------------------
+def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B,S,H_kv,dh) → (B,S,H,dh), each K/V head repeated ``groups``
+    times in place (``jnp.repeat``)."""
+    return x if groups == 1 else x.repeat_interleave(groups, dim=2)
+
+
+def _mask_bias(pos: torch.Tensor, causal: bool, window) -> torch.Tensor:
+    """(S, S) f32 additive bias over positions ``pos``: 0 where a query
+    sees a key, :data:`MASKED` elsewhere."""
+    ok = torch.ones((pos.shape[0], pos.shape[0]), dtype=torch.bool,
+                    device=pos.device)
+    if causal:
+        ok = ok & (pos[None, :] <= pos[:, None])
+    if window is not None:
+        ok = ok & (pos[:, None] - pos[None, :] < window)
+    return torch.where(ok, 0.0, MASKED)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           bias: torch.Tensor | None, cap) -> torch.Tensor:
+    """q (B,Sq,H,dh), k/v (B,Sk,H,dh), bias (Sq,Sk) or None → (B,Sq,H,dh)
+    in v's dtype.  Logits and softmax in f32 (the products of q·k are
+    exact in f32, as with the reference's ``preferred_element_type``),
+    the weights rounded to v's dtype before the PV product."""
+    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]),
+                                          device=q.device))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = softcap(logits, cap)
+    if bias is not None:
+        logits = logits + bias
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def attention_block(params, x: torch.Tensor, cfg, kind: str,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Train-mode causal self-attention over whole sequences (x (B,S,d)
+    at ``positions`` (S,)): RoPE, the window of a ``local`` layer, the
+    softcap, GQA."""
+    q, k, v = _project(params, x, positions, cfg)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    o = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+               _mask_bias(positions, True, _window(cfg, kind)),
+               cfg.attn_logit_softcap)
+    return _out(params, o)
 
 
 def prefill_attention(params, x: torch.Tensor, cfg, kind: str,
@@ -112,12 +170,19 @@ def decode_attention(params, x: torch.Tensor, cfg, kind: str,
     return _out(params, o[:, None])
 
 
-def encoder_attention_block(params, x: torch.Tensor, cfg) -> torch.Tensor:
+def encoder_attention_block(params, x: torch.Tensor, cfg,
+                            train: bool = False) -> torch.Tensor:
     """Bidirectional self-attention over a whole sequence (the whisper
-    encoder): no RoPE, no mask."""
-    o = flash_attention_bshd(_heads(x, params["wq"]), _heads(x, params["wk"]),
-                             _heads(x, params["wv"]), causal=False,
-                             softcap=cfg.attn_logit_softcap)
+    encoder): no RoPE, no mask; the flash kernel, or :func:`attend`
+    with ``train``."""
+    q, k, v = (_heads(x, params[w]) for w in ("wq", "wk", "wv"))
+    if train:
+        groups = cfg.num_heads // cfg.num_kv_heads
+        o = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups), None,
+                   cfg.attn_logit_softcap)
+    else:
+        o = flash_attention_bshd(q, k, v, causal=False,
+                                 softcap=cfg.attn_logit_softcap)
     return _out(params, o)
 
 
@@ -128,11 +193,19 @@ def encoder_kv(params, enc_out: torch.Tensor) -> dict[str, torch.Tensor]:
             "v": _heads(enc_out, params["wv"])}
 
 
-def cross_attention_block(params, x: torch.Tensor, enc_kv: dict, cfg
-                          ) -> torch.Tensor:
+def cross_attention_block(params, x: torch.Tensor, enc_kv: dict, cfg,
+                          train: bool = False) -> torch.Tensor:
     """Decoder cross-attention: x (B, Sq, d) — the prompt at prefill,
-    one token at decode — over the encoder's K/V, every key visible."""
-    o = flash_attention_bshd(_heads(x, params["wq"]), enc_kv["k"],
-                             enc_kv["v"], causal=False,
-                             softcap=cfg.attn_logit_softcap)
+    one token at decode, the whole sequence in training — over the
+    encoder's K/V, every key visible; the flash kernel, or
+    :func:`attend` with ``train``."""
+    q = _heads(x, params["wq"])
+    if train:
+        groups = cfg.num_heads // cfg.num_kv_heads
+        o = attend(q, _repeat_kv(enc_kv["k"], groups),
+                   _repeat_kv(enc_kv["v"], groups), None,
+                   cfg.attn_logit_softcap)
+    else:
+        o = flash_attention_bshd(q, enc_kv["k"], enc_kv["v"], causal=False,
+                                 softcap=cfg.attn_logit_softcap)
     return _out(params, o)

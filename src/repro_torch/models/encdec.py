@@ -17,6 +17,12 @@ token, as the reference's ``kv_bytes_per_token`` counts the decoder's
 self-attention layers only.  A call names the rows of its sequences
 with ``lanes`` (default: row b for sequence b).
 
+``forward_train`` runs the same stacks in train mode: the decoder's
+causal self-attention (RoPE) and the encoder's and cross attention as
+the reference's dense ``attend`` under autograd, never the kernels.
+It needs the frames; the synthetic data pipeline gives none, so
+neither package's ``TrainLoop`` can train this model (fault C11).
+
 The serving engine takes no encoder-decoder model: the reference's
 engine passes no frames to prefill (ROADMAP fault C10), so whisper runs
 through these entry points only.
@@ -41,9 +47,9 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     unembed,
 )
-from repro_torch.models.runtime import LOCAL, Runtime
+from repro_torch.models.runtime import LOCAL, Runtime, check_remat
 from repro_torch.models.transformer import _param, _params, _rows, \
-    tensors_from_numpy
+    layer_tree, stack_layers, tensors_from_numpy
 
 
 class EncoderLayer(nn.Module):
@@ -54,9 +60,10 @@ class EncoderLayer(nn.Module):
         self.ln2 = _param(weights["ln2"])
         self.mlp = _params(weights["mlp"])
 
-    def forward(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cfg: ArchConfig,
+                train: bool = False) -> torch.Tensor:
         x = x + attn.encoder_attention_block(self.attn,
-                                             rmsnorm(self.ln1, x), cfg)
+                                             rmsnorm(self.ln1, x), cfg, train)
         return x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.mlp_kind)
 
 
@@ -71,14 +78,15 @@ class DecoderLayer(nn.Module):
         self.mlp = _params(weights["mlp"])
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig, attend,
-                enc_kv: dict) -> torch.Tensor:
-        """``attend(attn_params, y)`` is the prefill or decode
-        self-attention bound to this layer's KV pages; ``enc_kv`` the
-        layer's cross K/V of the batch's sequences."""
+                enc_kv: dict, train: bool = False) -> torch.Tensor:
+        """``attend(attn_params, y)`` is the prefill, decode or train
+        self-attention (bound to this layer's KV pages where it has
+        them); ``enc_kv`` the layer's cross K/V of the batch's
+        sequences."""
         x = x + attend(self.self_attn, rmsnorm(self.ln1, x))
         x = x + attn.cross_attention_block(self.cross_attn,
                                            rmsnorm(self.ln_x, x), enc_kv,
-                                           cfg)
+                                           cfg, train)
         return x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.mlp_kind)
 
 
@@ -145,6 +153,19 @@ def params_from_jax(cfg: ArchConfig, np_params: dict,
         "final_norm": tensors_from_numpy(np_params["final_norm"], device)})
 
 
+def param_tree(model: EncoderDecoder) -> dict:
+    """The model's parameters as the reference's pytree (encoder and
+    decoder layers as groups: the reference stacks them), a view of the
+    model's own tensors."""
+    return {"embed": {"table": model.embed},
+            "enc_layers": stack_layers([layer_tree(layer)
+                                        for layer in model.enc_layers]),
+            "enc_norm": {"scale": model.enc_norm},
+            "dec_layers": stack_layers([layer_tree(layer)
+                                        for layer in model.dec_layers]),
+            "final_norm": {"scale": model.final_norm}}
+
+
 # ============================ cache ============================================
 @dataclasses.dataclass
 class EncDecCache:
@@ -173,16 +194,18 @@ def init_cache(cfg: ArchConfig, total_pages: int, page_tokens: int,
 
 
 # ============================ entry points =======================================
-def encode(model: EncoderDecoder, frames: torch.Tensor) -> torch.Tensor:
+def encode(model: EncoderDecoder, frames: torch.Tensor,
+           train: bool = False) -> torch.Tensor:
     """frames: precomputed (B, S_enc, d) stub-frontend embeddings →
-    the encoder's output (B, S_enc, d)."""
+    the encoder's output (B, S_enc, d); dense attention with
+    ``train``."""
     cfg = model.cfg
     S = frames.shape[1]
     x = frames.to(dtype_of(cfg.dtype))
     x = x + sinusoidal_positions(torch.arange(S, device=x.device),
                                  cfg.d_model).to(x.dtype)[None]
     for layer in model.enc_layers:
-        x = layer(x, cfg)
+        x = layer(x, cfg, train)
     return rmsnorm(model.enc_norm, x)
 
 
@@ -196,12 +219,12 @@ def cross_kv(model: EncoderDecoder,
 
 
 def _decoder(model: EncoderDecoder, x: torch.Tensor, attend,
-             enc_kv: dict) -> torch.Tensor:
+             enc_kv: dict, train: bool = False) -> torch.Tensor:
     """The decoder stack; ``attend(l, p, y)`` is layer l's
     self-attention, ``enc_kv`` the (L, B, ...) cross K/V."""
     for l, layer in enumerate(model.dec_layers):
         x = layer(x, model.cfg, lambda p, y, l=l: attend(l, p, y),
-                  {n: t[l] for n, t in enc_kv.items()})
+                  {n: t[l] for n, t in enc_kv.items()}, train)
     return x
 
 
@@ -209,6 +232,29 @@ def _logits(model: EncoderDecoder, x: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     return unembed(model.embed, rmsnorm(model.final_norm, x),
                    cfg.vocab_size, cap=cfg.final_logit_softcap)
+
+
+def forward_train(model: EncoderDecoder, tokens: torch.Tensor,
+                  extra_embed: Optional[torch.Tensor] = None,
+                  remat: str = "none") -> torch.Tensor:
+    """Teacher-forced training: the frames ``extra_embed`` (B, S_enc, d)
+    encoded, then the decoder tokens (B, S) → (B, S, V_padded) logits,
+    under autograd.  ``remat`` is checked and, as in the reference
+    (whose encoder-decoder ignores ``Runtime.remat``), not applied."""
+    check_remat(remat)
+    cfg = model.cfg
+    if extra_embed is None:
+        raise ValueError(f"{cfg.name}: forward_train needs the encoder's "
+                         "frames, extra_embed (B, S_enc, d) (fault C11: the "
+                         "synthetic data pipeline gives none)")
+    xkv = cross_kv(model, encode(model, extra_embed, train=True))
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)
+    x = embed(model.embed, tokens)
+    x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)[None]
+    x = _decoder(model, x, lambda l, p, y: attn.attention_block(
+        p, y, cfg, "global", positions), xkv, train=True)
+    return _logits(model, x)
 
 
 @torch.no_grad()

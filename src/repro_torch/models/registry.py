@@ -4,6 +4,8 @@
 the engine programs against:
 
     init(gen, device)                                        → params
+    forward_train(params, tokens, extra_embed=None,
+                  remat="none")                              → logits
     prefill(params, tokens, cache, block_tables, lanes=None,
             extra_embed=None)                                → logits
     decode_step(params, tok, cache, block_tables, pos,
@@ -15,7 +17,10 @@ returns: a :class:`~repro_torch.models.transformer.Transformer`, or an
 :class:`~repro_torch.models.encdec.EncoderDecoder` for an
 encoder-decoder config, whose prefill takes the encoder's frames as
 ``extra_embed``.  ``lanes`` names the cache rows of each sequence's
-per-sequence state (recurrent state, cross K/V).  :func:`param_count`
+per-sequence state (recurrent state, cross K/V).  ``forward_train``
+gives the logits at every position under autograd (the encoder-decoder
+takes its frames as ``extra_embed``); :func:`param_tree` views
+``params`` as the reference's pytree.  :func:`param_count`
 counts every weight, the MoE layers' router and all their experts
 included (not the active parameters of a token).
 
@@ -38,6 +43,7 @@ from repro_torch.models.runtime import LOCAL
 class Model:
     cfg: ArchConfig
     init: Callable[..., torch.nn.Module]
+    forward_train: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
@@ -50,6 +56,7 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen, device="cuda": lib.init_params(gen, cfg, device),
+        forward_train=lib.forward_train,
         prefill=lib.prefill,
         decode_step=lib.decode_step,
         init_cache=lambda total_pages, page_tokens, rt=LOCAL, device="cuda",
@@ -64,6 +71,13 @@ def params_from_jax(cfg: ArchConfig, np_params: dict,
     for ``cfg``."""
     lib = encdec if cfg.is_encoder_decoder else transformer
     return lib.params_from_jax(cfg, np_params, device)
+
+
+def param_tree(params: torch.nn.Module) -> dict:
+    """``params`` as the reference's param pytree (see
+    :func:`repro_torch.models.transformer.param_tree`)."""
+    lib = encdec if params.cfg.is_encoder_decoder else transformer
+    return lib.param_tree(params)
 
 
 def param_count(params: torch.nn.Module) -> int:

@@ -8,12 +8,22 @@ each pattern position's parameters across periods and scans them with
 ``nn.ModuleList`` (depth order) and the entry points loop over it.
 :func:`params_from_jax` unstacks a reference pytree into that list.
 
-Entry points, matching the serving split:
-  ``prefill``      — prompts in, last-position logits out, KV pages and
-                     recurrent state written
-  ``decode_step``  — one token per sequence in, logits out, one KV slot
-                     per sequence and attention layer written, each
-                     recurrent layer's state advanced one step
+Entry points, matching the serving/training split:
+  ``forward_train`` — full-sequence logits under autograd, no cache
+                      (dense attention: the kernels have no backward)
+  ``prefill``       — prompts in, last-position logits out, KV pages and
+                      recurrent state written
+  ``decode_step``   — one token per sequence in, logits out, one KV slot
+                      per sequence and attention layer written, each
+                      recurrent layer's state advanced one step
+
+A model's parameters are created frozen (``requires_grad=False``); the
+train step turns gradients on for the model it trains, and the serve
+entry points run under ``torch.no_grad``.  :func:`param_tree` views
+them as the reference's pytree — the same key paths, each stacked leaf
+as the group (list) of its per-period tensors — which is what the
+optimizer's decay mask, the gradient compressor and the checkpoint key
+on.
 
 The cache (:class:`PagedKVCache`) holds one ``(P, T, H_kv, dh)`` K page
 pool and one V page pool per *attention* layer, which sequences address
@@ -36,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as attn
@@ -53,7 +64,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     unembed,
 )
-from repro_torch.models.runtime import LOCAL, Runtime
+from repro_torch.models.runtime import LOCAL, Runtime, check_remat
 
 ATTN_KINDS = ("global", "local")
 #: recurrent kind → its per-sequence state, ``fn(batch, cfg, device)``
@@ -276,6 +287,55 @@ def params_from_jax(cfg: ArchConfig, np_params: dict,
     return Transformer(cfg, weights)
 
 
+#: names of the rmsnorm scales, which the reference keeps as
+#: ``{"scale": s}`` (``tensors_from_numpy`` drops that level)
+NORMS = frozenset({"ln", "ln1", "ln2", "ln_x", "out_ln", "post_ln1",
+                   "post_ln2", "final_norm", "enc_norm"})
+
+
+def _as_reference(name: str, t: torch.Tensor):
+    return {"scale": t} if name in NORMS else t
+
+
+def layer_tree(layer: nn.Module) -> dict:
+    """One layer's parameters as the reference's layer dict (the same
+    tensors, not copies)."""
+    tree = {name: _as_reference(name, p)
+            for name, p in layer.named_parameters(recurse=False)}
+    for name, child in layer.named_children():
+        tree[name] = {k: _as_reference(k, p) for k, p in child.items()}
+    return tree
+
+
+def stack_layers(trees: list) -> dict:
+    """Congruent layer dicts → one dict whose leaves are the groups of
+    their tensors (the reference's stacked leaves, unstacked)."""
+    if isinstance(trees[0], dict):
+        return {k: stack_layers([t[k] for t in trees]) for k in trees[0]}
+    return list(trees)
+
+
+def param_tree(model: Transformer) -> dict:
+    """The model's parameters as the reference's param pytree:
+    ``embed/table``, ``final_norm/scale``, ``vision_proj``,
+    ``periods/k{j}/...`` (each leaf the group of the n_periods layers at
+    pattern position j) and ``tail{j}/...``.  A view: the leaves are
+    the model's own parameters."""
+    cfg = model.cfg
+    P = len(cfg.pattern)
+    layers = list(model.layers)
+    tree = {"embed": {"table": model.embed},
+            "final_norm": {"scale": model.final_norm},
+            "periods": {f"k{j}": stack_layers([
+                layer_tree(layers[p * P + j]) for p in range(cfg.n_periods)])
+                for j in range(P)}}
+    if hasattr(model, "vision_proj"):
+        tree["vision_proj"] = model.vision_proj
+    for j in range(len(cfg.tail_kinds)):
+        tree[f"tail{j}"] = layer_tree(layers[cfg.n_periods * P + j])
+    return tree
+
+
 # ============================ cache ============================================
 @dataclasses.dataclass
 class PagedKVCache:
@@ -353,6 +413,51 @@ def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(model.final_norm, x)
     return unembed(model.embed, x, cfg.vocab_size,
                    cap=cfg.final_logit_softcap)
+
+
+def _train_layer(layer: nn.Module, x: torch.Tensor, cfg: ArchConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    if layer.kind in ATTN_KINDS:
+        return layer(x, cfg, lambda p, y: attn.attention_block(
+            p, y, cfg, layer.kind, positions))
+    state = _STATE[layer.kind](x.shape[0], cfg, x.device)
+    return layer(x, cfg, state, False)[0]
+
+
+def _train_layers(layers, x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
+    for layer in layers:
+        x = _train_layer(layer, x, cfg, positions)
+    return x
+
+
+def forward_train(model: Transformer, tokens: torch.Tensor,
+                  extra_embed: Optional[torch.Tensor] = None,
+                  remat: str = "none") -> torch.Tensor:
+    """(B,S) tokens → (B,S',V_padded) logits at every position (S'
+    counts a VLM prefix of ``extra_embed`` (B, N, d) patch embeddings),
+    as the reference's ``forward_train``: dense attention (never the
+    kernels), each recurrent layer from a fresh state, no cache.  With
+    ``remat="full"`` each period of layers runs under
+    ``torch.utils.checkpoint`` (the reference wraps its period body in
+    ``jax.checkpoint``), so backward recomputes it; the tail layers run
+    as they are, as in the reference."""
+    check_remat(remat)
+    cfg = model.cfg
+    x = embed_inputs(model, tokens, extra_embed)
+    positions = torch.arange(x.shape[1], device=x.device)
+    P = len(cfg.pattern)
+    layers = list(model.layers)
+    for p in range(cfg.n_periods):
+        period = layers[p * P:(p + 1) * P]
+        if remat == "full":
+            x = torch.utils.checkpoint.checkpoint(
+                _train_layers, period, x, cfg, positions,
+                use_reentrant=False)
+        else:
+            x = _train_layers(period, x, cfg, positions)
+    x = _train_layers(layers[cfg.n_periods * P:], x, cfg, positions)
+    return _logits(model, x)
 
 
 @torch.no_grad()

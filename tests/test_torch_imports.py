@@ -33,8 +33,13 @@ def imported_roots(path: Path) -> set[str]:
 
 def test_port_has_the_reference_layout():
     for sub in ("core", "gateway", "serving", "models", "configs",
-                "kernels", "launch"):
+                "kernels", "launch", "training", "checkpointing", "data"):
         assert (PORT / sub / "__init__.py").is_file(), sub
+    for mod in ("training/loss.py", "training/optimizer.py",
+                "training/grad_compress.py", "training/train_loop.py",
+                "checkpointing/checkpoint.py", "data/pipeline.py",
+                "launch/train.py", "tree.py"):
+        assert PORT / mod in FILES, mod
     assert (ROOT / "chip_smoke.py").is_file()
 
 
