@@ -15,10 +15,17 @@ over periods of layers — is stacked on save and split on restore, so
 the manifest holds the reference's logical shapes.  bfloat16 (and
 float8_e4m3fn) go to the npz file as raw ``uint16`` (``uint8``) views
 with the logical dtype in the manifest; the views go through torch's
-own integer views, so no ``ml_dtypes`` is needed.  The reference's
-elastic ``shardings=`` restore belongs with model sharding and is not
-ported.  Async saves snapshot to host memory on the caller's thread
-and write in a background thread; ``wait()`` joins it.
+own integer views, so no ``ml_dtypes`` is needed.  Async saves
+snapshot to host memory on the caller's thread and write in a
+background thread; ``wait()`` joins it.
+
+Elastic checkpoints: ``save(..., shardings=)`` takes a tree of this
+rank's blocks, with a ``distributed.sharding.NamedSharding`` (mesh,
+spec) per leaf: each leaf is gathered over the mesh and rank 0 writes
+the whole, logical leaves — the reference's format, whatever the mesh.
+``restore(..., shardings=)`` places each leaf's block for the current
+mesh on this rank, so a checkpoint written on N ranks (or by the
+reference on N devices) restores on M.
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import block, gather_block
 
 from repro_torch.tree import is_group, key_of, leaf_shape, \
     leaves_with_paths, map_leaves, stacked, unstacked
@@ -64,8 +74,20 @@ def _from_host(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
 
-def save(directory: str, step: int, tree: Any) -> str:
-    """Synchronous commit-protocol save."""
+def save(directory: str, step: int, tree: Any,
+         shardings: Any = None) -> Optional[str]:
+    """Synchronous commit-protocol save.  With ``shardings`` (a tree of
+    ``NamedSharding`` congruent with ``tree``, whose leaves are this
+    rank's blocks) every rank of the mesh must call it: the leaves are
+    gathered, rank 0 writes them, and every rank returns once the step
+    is committed (rank 0 with its directory, the others with None)."""
+    if shardings is not None:
+        tree = map_leaves(gather_block, tree, shardings)
+        mesh = next(sh.mesh for _, sh in leaves_with_paths(shardings))
+        out = save(directory, step, tree) if mesh.rank == 0 else None
+        if mesh.bound:
+            dist.barrier()
+        return out
     step_dir = os.path.join(directory, f"step_{step:08d}")
     tmp_dir = step_dir + ".tmp"
     if os.path.exists(tmp_dir):
@@ -106,12 +128,15 @@ def latest_step(directory: str) -> Optional[int]:
     return best
 
 
-def restore(directory: str, step: int, target: Any) -> Any:
+def restore(directory: str, step: int, target: Any,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``target``: a tree of tensors or
-    groups (``device="meta"`` tensors serve as shape/dtype specs).
-    Each leaf comes back as a new tensor of the target's dtype, split
-    where the target leaf is a group, on the target's device (the CPU
-    for a meta target)."""
+    groups (``device="meta"`` tensors serve as shape/dtype specs) of the
+    whole, logical leaves.  Each leaf comes back as a new tensor of the
+    target's dtype, split where the target leaf is a group, on the
+    target's device (the CPU for a meta target).  With ``shardings``
+    (a tree of ``NamedSharding`` congruent with ``target``) each leaf is
+    this rank's block of it on its mesh — the elastic-resume path."""
     step_dir = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
@@ -132,8 +157,13 @@ def restore(directory: str, step: int, target: Any) -> Any:
             raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
                              f"target {leaf_shape(tgt)}")
         dev = "cpu" if like.device.type == "meta" else like.device
+        sh = placed.get(key)
+        if sh is not None:
+            t = block(sh.mesh, sh.spec, t).clone()
         return unstacked(t.to(dtype=like.dtype, device=dev), tgt)
 
+    placed = {} if shardings is None else {
+        key_of(p): sh for p, sh in leaves_with_paths(shardings)}
     with np.load(os.path.join(step_dir, "arrays.npz")) as data:
         return map_leaves(load, target, with_path=True)
 

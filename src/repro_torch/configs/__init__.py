@@ -27,3 +27,7 @@ def get_config(name: str):
     if mod is None:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
+
+
+#: the 10 assigned architectures (not the paper's serving model)
+ASSIGNED = tuple(n for n in _MODULES if n != "qwen3-8b")

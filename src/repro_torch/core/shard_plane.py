@@ -360,7 +360,9 @@ def launch_ranks(fn, size: int, *args, timeout: float = 600.0) -> list:
     ``TimeoutError``.  No rank outlives the call."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    with tempfile.TemporaryDirectory() as tmp:
+    # the gloo file store deletes its file as the last rank leaves, which
+    # can race the directory's removal
+    with tempfile.TemporaryDirectory(ignore_cleanup_errors=True) as tmp:
         # arguments go by file: a spawn start writes what it pickles to
         # a pipe the child reads only after its imports, so large
         # arguments would start the ranks one after another

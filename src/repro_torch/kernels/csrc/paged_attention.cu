@@ -52,6 +52,16 @@
 // rescales them to a common max, sums and divides, and writes q's
 // dtype; context 0 gives zeros.
 //
+// Partial route (paged_partial_*): the same two passes over one rank's
+// block of a sequence-sharded cache.  Its pages hold global positions
+// [off, off + max_pages·T) of the sequence (off = key_offset[b]) and
+// context_lens holds the global context, so the local context is
+// clamp(ctx − off, 0, max_pages·T) and the window's first live token
+// ctx − w is taken in global positions.  Pass 2 writes the rank's
+// partial in f32 — o = Σ p·v / Σ p and lse = ln Σ e^s over its live
+// tokens (o = 0, lse = −inf where it has none) — for the ranks'
+// partials to be merged (flash-decoding across ranks).
+//
 // paged_decode_serial_bf16 keeps the first kernel of this port — one CTA
 // per (sequence, kv head) walking its pages in series — as the baseline
 // that the split kernel's time is compared with.  It is on no path.  It
@@ -109,6 +119,19 @@ __device__ __forceinline__ void unpack(const uint4& r, float* f, float) {
   f[3] = __uint_as_float(r.w);
 }
 
+// The local context of sequence b and its first live token: its pages
+// hold positions [off, off + span) (off = 0 without key_offset) of a
+// sequence of global context context_lens[b].
+__device__ __forceinline__ void local_span(const int* context_lens,
+                                           const int* key_offset, int b,
+                                           int span, int window, int& ctx,
+                                           int& lo) {
+  const int ctx_g = context_lens[b];
+  const int off = key_offset ? key_offset[b] : 0;
+  ctx = min(max(ctx_g - off, 0), span);
+  lo = window > 0 ? max(0, ctx_g - window - off) : 0;
+}
+
 // q (B, H, dh); pages (P, T, H_kv, dh); block_tables (B, max_pages) int32
 // padded with -1; context_lens (B,) int32.  Partials: acc
 // (B, H_kv, n_split, G, DH) and ml (B, H_kv, n_split, G, 2) f32, m in
@@ -120,6 +143,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                    const TKV* __restrict__ vp,
                    const int* __restrict__ block_tables,
                    const int* __restrict__ context_lens,
+                   const int* __restrict__ key_offset,
                    float* __restrict__ part_acc, float* __restrict__ part_ml,
                    int Hkv, int G, int T, int max_pages, int pps, int window,
                    float softcap, float scale) {
@@ -140,8 +164,8 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   const int n_tiles = G / GT;
   const int hk = blockIdx.x / n_tiles, g0 = blockIdx.x % n_tiles * GT;
   const int b = blockIdx.y, sp = blockIdx.z;
-  const int ctx = context_lens[b];
-  const int lo = window > 0 ? max(0, ctx - window) : 0;  // first live token
+  int ctx, lo;                                // local context, first live
+  local_span(context_lens, key_offset, b, max_pages * T, window, ctx, lo);
   const int chunk = pps * T;
   const int t0 = sp * chunk;
   // uniform: nothing to read (past the context, or behind the window)
@@ -311,14 +335,16 @@ template <typename TQ>
 __global__ void __launch_bounds__(THREADS)
 paged_merge_kernel(const float* __restrict__ part_acc,
                    const float* __restrict__ part_ml,
-                   const int* __restrict__ context_lens, TQ* __restrict__ o,
-                   int Hkv, int G, int dh, int chunk, int n_split,
-                   int window) {
+                   const int* __restrict__ context_lens,
+                   const int* __restrict__ key_offset, TQ* __restrict__ o,
+                   float* __restrict__ lse, int Hkv, int G, int dh,
+                   int chunk, int n_split, int window) {
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int ctx = context_lens[b];
+  int ctx, lo;
+  local_span(context_lens, key_offset, b, n_split * chunk, window, ctx, lo);
   // the chunks pass 1 wrote: from the one holding the window's first
   // live token to the one holding the last
-  const int s0 = window > 0 ? max(0, ctx - window) / chunk : 0;
+  const int s0 = lo / chunk;
   const int ns = min(n_split, (ctx + chunk - 1) / chunk);
   const long long p0 = ((long long)b * Hkv + hk) * n_split;
   TQ* ob = o + ((long long)b * Hkv + hk) * G * dh;
@@ -335,6 +361,9 @@ paged_merge_kernel(const float* __restrict__ part_acc,
       ls = fmaf(f, part_ml[((p0 + s) * G + g) * 2 + 1], ls);
     }
     ob[i] = from_f32<TQ>(ls > 0.f ? a / ls : 0.f);
+    if (lse && i % dh == 0)
+      lse[((long long)b * Hkv + hk) * G + g] =
+          ls > 0.f ? mx / LOG2E + logf(ls) : -INFINITY;
   }
 }
 
@@ -343,9 +372,10 @@ inline int pages_per_split(int T) { return T < CHUNK ? CHUNK / T : 1; }
 
 template <typename TQ, typename TKV, int DH, int GT>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
-                     const void* bt, const void* cl, void* o, float* part,
-                     int B, int Hkv, int G, int T, int max_pages, int window,
-                     float softcap, float scale, cudaStream_t stream) {
+                     const void* bt, const void* cl, const int* off, void* o,
+                     float* lse, float* part, int B, int Hkv, int G, int T,
+                     int max_pages, int window, float softcap, float scale,
+                     cudaStream_t stream) {
   const int pps = pages_per_split(T);
   const int n_split = (max_pages + pps - 1) / pps;
   float* part_ml = part + (size_t)B * Hkv * n_split * G * DH;
@@ -353,13 +383,19 @@ cudaError_t launch_g(const void* q, const void* kp, const void* vp,
       <<<dim3(Hkv * (G / GT), B, n_split), THREADS, 0, stream>>>(
           static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
           static_cast<const TKV*>(vp), static_cast<const int*>(bt),
-          static_cast<const int*>(cl), part, part_ml, Hkv, G, T, max_pages,
-          pps, window, softcap, scale);
+          static_cast<const int*>(cl), off, part, part_ml, Hkv, G, T,
+          max_pages, pps, window, softcap, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_merge_kernel<TQ><<<dim3(Hkv, B), THREADS, 0, stream>>>(
-      part, part_ml, static_cast<const int*>(cl), static_cast<TQ*>(o), Hkv,
-      G, DH, pps * T, n_split, window);
+  // the partial route writes f32 (o, lse); the full route q's dtype
+  if (lse)
+    paged_merge_kernel<float><<<dim3(Hkv, B), THREADS, 0, stream>>>(
+        part, part_ml, static_cast<const int*>(cl), off,
+        static_cast<float*>(o), lse, Hkv, G, DH, pps * T, n_split, window);
+  else
+    paged_merge_kernel<TQ><<<dim3(Hkv, B), THREADS, 0, stream>>>(
+        part, part_ml, static_cast<const int*>(cl), nullptr,
+        static_cast<TQ*>(o), nullptr, Hkv, G, DH, pps * T, n_split, window);
   return cudaGetLastError();
 }
 
@@ -370,54 +406,63 @@ inline int group_tile(int G) {
 
 template <typename TQ, typename TKV, int DH>
 cudaError_t launch_dh(const void* q, const void* kp, const void* vp,
-                      const void* bt, const void* cl, void* o, float* part,
-                      int B, int Hkv, int G, int T, int max_pages,
-                      int window, float softcap, float scale,
+                      const void* bt, const void* cl, const int* off, void* o,
+                      float* lse, float* part, int B, int Hkv, int G, int T,
+                      int max_pages, int window, float softcap, float scale,
                       cudaStream_t stream) {
   switch (group_tile(G)) {
-    case 1: return launch_g<TQ, TKV, DH, 1>(q, kp, vp, bt, cl, o, part, B,
-                                            Hkv, G, T, max_pages, window,
-                                            softcap, scale, stream);
-    case 2: return launch_g<TQ, TKV, DH, 2>(q, kp, vp, bt, cl, o, part, B,
-                                            Hkv, G, T, max_pages, window,
-                                            softcap, scale, stream);
-    case 4: return launch_g<TQ, TKV, DH, 4>(q, kp, vp, bt, cl, o, part, B,
-                                            Hkv, G, T, max_pages, window,
-                                            softcap, scale, stream);
-    default: return launch_g<TQ, TKV, DH, 8>(q, kp, vp, bt, cl, o, part, B,
-                                             Hkv, G, T, max_pages, window,
-                                             softcap, scale, stream);
+    case 1: return launch_g<TQ, TKV, DH, 1>(q, kp, vp, bt, cl, off, o,
+                                            lse, part, B, Hkv, G, T,
+                                            max_pages, window, softcap,
+                                            scale, stream);
+    case 2: return launch_g<TQ, TKV, DH, 2>(q, kp, vp, bt, cl, off, o,
+                                            lse, part, B, Hkv, G, T,
+                                            max_pages, window, softcap,
+                                            scale, stream);
+    case 4: return launch_g<TQ, TKV, DH, 4>(q, kp, vp, bt, cl, off, o,
+                                            lse, part, B, Hkv, G, T,
+                                            max_pages, window, softcap,
+                                            scale, stream);
+    default: return launch_g<TQ, TKV, DH, 8>(q, kp, vp, bt, cl, off, o,
+                                             lse, part, B, Hkv, G, T,
+                                             max_pages, window, softcap,
+                                             scale, stream);
   }
 }
 
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* kp, const void* vp,
-           const void* bt, const void* cl, void* o, void* part, int B,
-           int H, int Hkv, int T, int dh, int max_pages, int window,
-           float softcap, float scale, void* stream) {
+           const void* bt, const void* cl, const void* key_offset, void* o,
+           void* lse, void* part, int B, int H, int Hkv, int T, int dh,
+           int max_pages, int window, float softcap, float scale,
+           void* stream) {
   if (B == 0 || max_pages == 0) return cudaSuccess;
   const int G = H / Hkv;
   if (G < 1 || G > MAX_GROUP || G * Hkv != H)
     return static_cast<int>(cudaErrorInvalidValue);
   float* p = static_cast<float*>(part);
+  const int* off = static_cast<const int*>(key_offset);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dh) {
-    case 16: err = launch_dh<TQ, TKV, 16>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                          G, T, max_pages, window, softcap,
-                                          scale, s); break;
-    case 32: err = launch_dh<TQ, TKV, 32>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                          G, T, max_pages, window, softcap,
-                                          scale, s); break;
-    case 64: err = launch_dh<TQ, TKV, 64>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                          G, T, max_pages, window, softcap,
-                                          scale, s); break;
-    case 128: err = launch_dh<TQ, TKV, 128>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                            G, T, max_pages, window, softcap,
-                                            scale, s); break;
-    case 256: err = launch_dh<TQ, TKV, 256>(q, kp, vp, bt, cl, o, p, B, Hkv,
-                                            G, T, max_pages, window, softcap,
-                                            scale, s); break;
+    case 16: err = launch_dh<TQ, TKV, 16>(q, kp, vp, bt, cl, off, o, ls, p,
+                                          B, Hkv, G, T, max_pages, window,
+                                          softcap, scale, s); break;
+    case 32: err = launch_dh<TQ, TKV, 32>(q, kp, vp, bt, cl, off, o, ls, p,
+                                          B, Hkv, G, T, max_pages, window,
+                                          softcap, scale, s); break;
+    case 64: err = launch_dh<TQ, TKV, 64>(q, kp, vp, bt, cl, off, o, ls, p,
+                                          B, Hkv, G, T, max_pages, window,
+                                          softcap, scale, s); break;
+    case 128: err = launch_dh<TQ, TKV, 128>(q, kp, vp, bt, cl, off, o, ls,
+                                            p, B, Hkv, G, T, max_pages,
+                                            window, softcap, scale, s);
+      break;
+    case 256: err = launch_dh<TQ, TKV, 256>(q, kp, vp, bt, cl, off, o, ls,
+                                            p, B, Hkv, G, T, max_pages,
+                                            window, softcap, scale, s);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -586,8 +631,9 @@ extern "C" int paged_decode_f32(const void* q, const void* kp,
                                 int dh, int max_pages, int window,
                                 float softcap, float scale, void* stream) {
   return split::launch<float, float>(q, kp, vp, block_tables, context_lens,
-                                     o, part, B, H, Hkv, T, dh, max_pages,
-                                     window, softcap, scale, stream);
+                                     nullptr, o, nullptr, part, B, H, Hkv, T,
+                                     dh, max_pages, window, softcap, scale,
+                                     stream);
 }
 
 extern "C" int paged_decode_bf16(const void* q, const void* kp,
@@ -597,8 +643,8 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  int dh, int max_pages, int window,
                                  float softcap, float scale, void* stream) {
   return split::launch<__nv_bfloat16, __nv_bfloat16>(
-      q, kp, vp, block_tables, context_lens, o, part, B, H, Hkv, T, dh,
-      max_pages, window, softcap, scale, stream);
+      q, kp, vp, block_tables, context_lens, nullptr, o, nullptr, part, B, H,
+      Hkv, T, dh, max_pages, window, softcap, scale, stream);
 }
 
 // f32 query (and output) over bf16 pages.
@@ -611,9 +657,30 @@ extern "C" int paged_decode_f32_bf16(const void* q, const void* kp,
                                      int window, float softcap, float scale,
                                      void* stream) {
   return split::launch<float, __nv_bfloat16>(
-      q, kp, vp, block_tables, context_lens, o, part, B, H, Hkv, T, dh,
-      max_pages, window, softcap, scale, stream);
+      q, kp, vp, block_tables, context_lens, nullptr, o, nullptr, part, B, H,
+      Hkv, T, dh, max_pages, window, softcap, scale, stream);
 }
+
+// The partial route: as the split-K entries, over one rank's block of a
+// sequence-sharded cache whose pages hold global positions
+// [key_offset[b], key_offset[b] + max_pages·T); context_lens is the
+// global context.  o (B, H, dh) and lse (B, H) are f32 whatever q's type.
+#define PAGED_PARTIAL(NAME, TQ, TKV)                                         \
+  extern "C" int NAME(const void* q, const void* kp, const void* vp,        \
+                      const void* block_tables, const void* context_lens,   \
+                      const void* key_offset, void* o, void* lse,           \
+                      void* part, int B, int H, int Hkv, int T, int dh,     \
+                      int max_pages, int window, float softcap,             \
+                      float scale, void* stream) {                          \
+    return split::launch<TQ, TKV>(q, kp, vp, block_tables, context_lens,    \
+                                  key_offset, o, lse, part, B, H, Hkv, T,   \
+                                  dh, max_pages, window, softcap, scale,    \
+                                  stream);                                  \
+  }
+PAGED_PARTIAL(paged_partial_f32, float, float)
+PAGED_PARTIAL(paged_partial_bf16, __nv_bfloat16, __nv_bfloat16)
+PAGED_PARTIAL(paged_partial_f32_bf16, float, __nv_bfloat16)
+#undef PAGED_PARTIAL
 
 // The serial baseline, bf16 only (the serve path's types).
 extern "C" int paged_decode_serial_bf16(const void* q, const void* kp,

@@ -36,6 +36,16 @@ matches what the token pool charges, ``kv_bytes_per_token`` over all
 attention layers for the whole context.  The TPU kernel has no window;
 the reference windows its dense decode.
 
+Partial route (:func:`paged_attention_partial`): one rank's block of a
+sequence-sharded cache, whose pages hold global positions
+``[key_offset[b], key_offset[b] + max_pages·T)`` of sequence b, with
+``context_lens`` and the window in global positions.  It returns the
+block's partial softmax in float32 — o over its live tokens and their
+``lse = ln Σ e^s`` (o = 0, lse = −inf for a block with none) — and
+:func:`merge_partials` combines the ranks' partials into the attention
+over the whole sequence.  ``paged_attention.route_launches["partial"]``
+counts its launches.
+
 Inputs:
   q            (B, H, dh)           one decode token per sequence
   k_pages      (P, T, H_kv, dh)     the physical page pool
@@ -70,6 +80,12 @@ _ENTRY = {(torch.float32, torch.float32): "paged_decode_f32",
           (torch.float32, torch.bfloat16): "paged_decode_f32_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+#: (q dtype, page dtype) → C entry point of the partial route
+_PARTIAL_ENTRY = {(torch.float32, torch.float32): "paged_partial_f32",
+                  (torch.bfloat16, torch.bfloat16): "paged_partial_bf16",
+                  (torch.float32, torch.bfloat16): "paged_partial_f32_bf16"}
+_PARTIAL_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _SERIAL_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
@@ -79,11 +95,12 @@ def pages_per_split(page_tokens: int) -> int:
     return max(1, CHUNK_TOKENS // page_tokens)
 
 
-def _dense(q, k_pages, v_pages, block_tables, context_lens, window=None):
+def _dense(q, k_pages, v_pages, block_tables, context_lens, window=None,
+           lo=None):
     """Pages gathered per sequence: k, v (B, max_pages·T, H, dh) in f32
     with the kv heads repeated over each group, and the (B, max_pages·T)
-    mask of live tokens (before the context, inside the window, on a
-    page that is not −1)."""
+    mask of live tokens (before the context, inside the window — or at
+    or after ``lo`` (B,) where given —, on a page that is not −1)."""
     B, H, dh = q.shape
     P, T, H_kv, _ = k_pages.shape
     max_pages = block_tables.shape[1]
@@ -97,7 +114,9 @@ def _dense(q, k_pages, v_pages, block_tables, context_lens, window=None):
     page_ok = (block_tables >= 0)[:, :, None].expand(B, max_pages, T)
     ctx = context_lens[:, None].long()
     mask = (pos < ctx) & page_ok.reshape(B, max_pages * T)
-    if window is not None:
+    if lo is not None:
+        mask = mask & (pos >= lo[:, None])
+    elif window is not None:
         mask = mask & (pos >= ctx - window)
     return k, v, mask
 
@@ -159,6 +178,46 @@ def reference_paged_attention_split(q, k_pages, v_pages, block_tables,
     return out.to(q.dtype)
 
 
+def _local_span(context_lens, key_offset, span: int, window):
+    """A block's local context (B,) and its first live local position
+    (B,) or None, from global contexts and the block's offsets."""
+    ctx = context_lens.long()
+    off = key_offset.long()
+    local = (ctx - off).clamp(0, span)
+    lo = None if window is None else ctx - window - off
+    return local, lo
+
+
+def reference_paged_attention_partial(q, k_pages, v_pages, block_tables,
+                                      context_lens, key_offset, *,
+                                      softcap=None, window=None):
+    """Plain version of the partial route: (o (B, H, dh), lse (B, H)),
+    both float32, over the live tokens of this block (global positions
+    ``key_offset[b]`` + local position, live when before
+    ``context_lens[b]`` and inside the window); o = 0, lse = −inf where
+    the block has none."""
+    span = block_tables.shape[1] * k_pages.shape[1]
+    local, lo = _local_span(context_lens, key_offset, span, window)
+    k, v, mask = _dense(q, k_pages, v_pages, block_tables, local, lo=lo)
+    s = torch.where(mask[:, None, :], _scores(q, k, softcap), -math.inf)
+    lse = torch.logsumexp(s, dim=-1)                        # (B, H)
+    p = torch.exp(s - torch.where(lse == -math.inf, 0.0, lse)[..., None])
+    o = torch.einsum("bhk,bkhd->bhd", p, v)
+    return o, lse
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The ranks' partials, o (n, B, H, dh) and lse (n, B, H), merged:
+    ``Σ_r e^(lse_r − M) o_r / Σ_r e^(lse_r − M)`` with M the largest
+    lse; 0 where every rank's block was empty.  Float32."""
+    big = lse.amax(dim=0)
+    w = torch.exp(lse - torch.where(big == -math.inf, 0.0, big))
+    den = w.sum(dim=0)
+    num = (w[..., None] * o).sum(dim=0)
+    return torch.where(den[..., None] > 0,
+                       num / den.clamp_min(1e-30)[..., None], 0.0)
+
+
 def _check(q, k_pages, v_pages, block_tables, context_lens, out) -> None:
     B, H, dh = q.shape
     P, T, H_kv, _ = k_pages.shape
@@ -180,11 +239,16 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, out) -> None:
 
 
 def _launch(q, k_pages, v_pages, block_tables, context_lens, out,
-            softcap, window) -> None:
-    _check(q, k_pages, v_pages, block_tables, context_lens, out)
+            softcap, window, key_offset=None, lse=None) -> None:
+    """One launch of the split kernel, or of its partial route when
+    ``key_offset`` is given (``out`` and ``lse`` then float32)."""
+    partial = key_offset is not None
+    _check(q, k_pages, v_pages, block_tables, context_lens,
+           q if partial else out)
     B, H, dh = q.shape
     P, T, H_kv, _ = k_pages.shape
-    entry = _ENTRY.get((q.dtype, k_pages.dtype))
+    entry = (_PARTIAL_ENTRY if partial else _ENTRY).get(
+        (q.dtype, k_pages.dtype))
     if entry is None:
         raise ValueError(f"paged_attention: no kernel for {q.dtype} "
                          f"queries over {k_pages.dtype} pages")
@@ -195,18 +259,31 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, out,
     if window is not None and window < 1:
         raise ValueError(f"paged_attention: window {window} must be >= 1")
     max_pages = block_tables.shape[1]
+    if max_pages < 1:
+        raise ValueError("paged_attention: block tables have no column")
     n_split = -(-max_pages // pages_per_split(T))
     part = torch.empty(B * H_kv * n_split * (H // H_kv) * (dh + 2),
                        dtype=torch.float32, device=q.device)
-    fn = build.function("paged_attention", entry, _ARGTYPES)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             block_tables.data_ptr(), context_lens.data_ptr(),
-             out.data_ptr(), part.data_ptr(), B, H, H_kv, T, dh, max_pages,
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr()]
+    if partial:
+        for name, t, dtype in (("key_offset", key_offset, torch.int32),
+                               ("out", out, torch.float32),
+                               ("lse", lse, torch.float32)):
+            if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+                raise ValueError(f"paged_attention_partial: {name} must be "
+                                 f"a contiguous CUDA {dtype} tensor")
+        ptrs += [key_offset.data_ptr(), out.data_ptr(), lse.data_ptr()]
+        fn = build.function("paged_attention", entry, _PARTIAL_ARGTYPES)
+    else:
+        ptrs += [out.data_ptr()]
+        fn = build.function("paged_attention", entry, _ARGTYPES)
+    err = fn(*ptrs, part.data_ptr(), B, H, H_kv, T, dh, max_pages,
              int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention")
     paged_attention.launches += 1
-    paged_attention.route_launches["split"] += 1
+    paged_attention.route_launches["partial" if partial else "split"] += 1
     paged_attention.windowed_launches += int(window is not None)
 
 
@@ -225,6 +302,26 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _launch(q, k_pages, v_pages, block_tables, context_lens, out, softcap,
             window)
     return out
+
+
+def paged_attention_partial(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, block_tables: torch.Tensor,
+                            context_lens: torch.Tensor,
+                            key_offset: torch.Tensor, *,
+                            softcap: Optional[float] = None,
+                            window: Optional[int] = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """This block's partial attention (o (B,H,dh), lse (B,H), float32)
+    over a sequence-sharded cache (see the module docstring)."""
+    if not q.is_cuda:
+        return reference_paged_attention_partial(
+            q, k_pages, v_pages, block_tables, context_lens, key_offset,
+            softcap=softcap, window=window)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch(q, k_pages, v_pages, block_tables, context_lens, out, softcap,
+            window, key_offset.to(torch.int32).contiguous(), lse)
+    return out, lse
 
 
 def paged_attention_serial(q, k_pages, v_pages, block_tables, context_lens,
@@ -253,6 +350,6 @@ def paged_attention_serial(q, k_pages, v_pages, block_tables, context_lens,
 
 
 paged_attention.launches = 0
-paged_attention.route_launches = {"split": 0, "serial": 0}
+paged_attention.route_launches = {"split": 0, "partial": 0, "serial": 0}
 #: split launches with a window (local layers)
 paged_attention.windowed_launches = 0

@@ -182,7 +182,9 @@ class EncDecCache:
 
 def init_cache(cfg: ArchConfig, total_pages: int, page_tokens: int,
                rt: Runtime = LOCAL, device="cuda",
-               lanes: int = 1) -> EncDecCache:
+               lanes: int = 1, layout=None) -> EncDecCache:
+    if layout is not None:
+        _unsharded(cfg)
     shape = (total_pages, page_tokens, cfg.num_kv_heads, cfg.head_dim)
     dt = rt.cache_dtype()
     return EncDecCache(
@@ -191,6 +193,12 @@ def init_cache(cfg: ArchConfig, total_pages: int, page_tokens: int,
         v=[torch.zeros(shape, dtype=dt, device=device)
            for _ in range(cfg.num_layers)],
         lanes=lanes)
+
+
+def _unsharded(cfg: ArchConfig) -> None:
+    raise NotImplementedError(
+        f"{cfg.name}: sharded execution of the encoder-decoder is ROADMAP "
+        "slice 11 (the sharding rules cover it)")
 
 
 # ============================ entry points =======================================
@@ -236,13 +244,16 @@ def _logits(model: EncoderDecoder, x: torch.Tensor) -> torch.Tensor:
 
 def forward_train(model: EncoderDecoder, tokens: torch.Tensor,
                   extra_embed: Optional[torch.Tensor] = None,
-                  remat: str = "none") -> torch.Tensor:
+                  remat: str = "none", rt: Runtime = LOCAL) -> torch.Tensor:
     """Teacher-forced training: the frames ``extra_embed`` (B, S_enc, d)
     encoded, then the decoder tokens (B, S) → (B, S, V_padded) logits,
     under autograd.  ``remat`` is checked and, as in the reference
-    (whose encoder-decoder ignores ``Runtime.remat``), not applied."""
+    (whose encoder-decoder ignores ``Runtime.remat``), not applied.
+    There is no sharded form yet (``rt`` must be unsharded)."""
     check_remat(remat)
     cfg = model.cfg
+    if rt.sharded:
+        _unsharded(cfg)
     if extra_embed is None:
         raise ValueError(f"{cfg.name}: forward_train needs the encoder's "
                          "frames, extra_embed (B, S_enc, d) (fault C11: the "

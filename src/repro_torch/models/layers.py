@@ -112,7 +112,10 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
     }
 
 
-def mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, kind: str,
+        partial: bool = False) -> torch.Tensor:
+    """The MLP; with ``partial`` the down-projection of a tp rank's block
+    of the hidden units, in float32 (see :func:`partial_product`)."""
     if kind == "swiglu":
         g = x @ params["w_gate"]
         u = x @ params["w_up"]
@@ -124,7 +127,17 @@ def mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:  # gelu
         u = x @ params["w_up"]
         h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
+    if partial:
+        return partial_product(h, params["w_down"])
     return h @ params["w_down"]
+
+
+def partial_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32: one tp rank's partial of a product whose
+    contraction dim is split over tp, kept unrounded until the sum over
+    the ranks rounds it once (a half-precision partial rounded on each
+    rank would add one rounding a rank to the single-device product)."""
+    return a.float() @ b.float()
 
 
 # -- embeddings ----------------------------------------------------------------------

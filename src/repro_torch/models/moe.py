@@ -22,10 +22,16 @@ assignments in sorted order (XLA's serial scatter), so each token's k
 contributions are added in that order (in bf16 the order changes the
 rounding; ``index_add_`` on the card would add them in any order).
 
-``moe_mlp_ep``, the reference's expert-parallel ``shard_map`` path with
-its two all-to-alls, is not ported (ROADMAP queue A.3, with the model
-sharding it needs: ``distributed/sharding.py``, ``launch/mesh.py`` and
-``Runtime``).
+:func:`moe_mlp_ep` is the reference's expert-parallel ``shard_map`` body
+on one rank of a mesh-ful ``Runtime``: experts split over the EP axes
+(the data axes), the expert ffn dim over tp,
+
+  tokens (T_loc, d) → local dispatch (E, C, d) —all_to_all(EP)→ the
+  local experts' slots (E_loc, n_ep·C, d) → expert products (f split
+  over tp, the partial down-projection summed over tp) —all_to_all(EP)→
+  back to the source rank → local combine,
+
+with the capacity C taken from the *local* T, as in the reference.
 """
 from __future__ import annotations
 
@@ -94,8 +100,9 @@ def _dispatch_indices(expert_ids: torch.Tensor, E: int, C: int
     return perm, dst, keep
 
 
-def moe_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """MoE MLP: x (T, d) → (T, d), SwiGLU experts."""
+def _dispatch(params, x: torch.Tensor, cfg):
+    """Route x (T, d) and fill the (E, C, d) dispatch buffer: (buffer,
+    (dst, src_gate, perm) for :func:`_combine`)."""
     T, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     C = expert_capacity(T, cfg)
@@ -114,23 +121,66 @@ def moe_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
     # with no boolean indexing, which would read a count back to the host
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf[torch.where(keep, dst, E * C)] = x[src_tok]
-    disp = buf[:E * C].view(E, C, d)
+    return buf[:E * C].view(E, C, d), (dst, src_gate, perm)
+
+
+def _experts(params, disp: torch.Tensor, partial: bool = False
+             ) -> torch.Tensor:
+    """SwiGLU experts on their slots: (E, C, d) → (E, C, d); with
+    ``partial`` the down-projection of a tp rank's block of the expert
+    ffn, in float32 (``layers.partial_product``)."""
     g = torch.bmm(disp, params["w_gate"])
     u = torch.bmm(disp, params["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    y = torch.bmm(h, params["w_down"]).reshape(E * C, d)
+    h = F.silu(g.float()).to(disp.dtype) * u
+    if partial:
+        return torch.bmm(h.float(), params["w_down"].float())
+    return torch.bmm(h, params["w_down"])
 
-    # combine: each token's k contributions (gate · y[slot], 0 when
-    # dropped), added in the sorted order of its assignments
+
+def _combine(y: torch.Tensor, how, T: int, k: int) -> torch.Tensor:
+    """Each token's k contributions (gate · y[slot], 0 when dropped),
+    added in the sorted order of its assignments: (E·C, d) → (T, d)."""
+    dst, src_gate, perm = how
     contrib = y[dst] * src_gate[:, None].to(y.dtype)      # sorted order
     where = torch.empty_like(perm)
-    where[perm] = torch.arange(T * k, device=x.device)
+    where[perm] = torch.arange(T * k, device=y.device)
     at = where.view(T, k).sort(dim=1).values                # (T, k)
     c = contrib[at]                                         # (T, k, d)
     out = c[:, 0]
     for j in range(1, k):
         out = out + c[:, j]
     return out
+
+
+def moe_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """MoE MLP: x (T, d) → (T, d), SwiGLU experts."""
+    T, d = x.shape
+    disp, how = _dispatch(params, x, cfg)
+    y = _experts(params, disp).reshape(-1, d)
+    return _combine(y, how, T, cfg.experts_per_token)
+
+
+def moe_mlp_ep(params, x: torch.Tensor, cfg, rt) -> torch.Tensor:
+    """This rank's MoE MLP under the mesh of ``rt``: x (T_loc, d), the
+    rank's tokens; ``params`` the rank's experts (E_loc, d, f_loc), the
+    router whole.  Each all-to-all's bytes go to the mesh's tally."""
+    # deferred: distributed/__init__ → sharding → models (this package)
+    from repro_torch.distributed.collectives import all_to_all
+    T, d = x.shape
+    E = cfg.num_experts
+    mesh, ep = rt.mesh, rt.ep_axes
+    if E % mesh.axis_size(ep):
+        raise ValueError(f"{cfg.name}: {E} experts over {ep} "
+                         f"({mesh.axis_size(ep)} ranks)")
+    send, how = _dispatch(params, x, cfg)
+    # (E, C, d) → (E_loc, n_ep·C, d), slots grouped by source rank
+    recv = rt.replicate_tp(all_to_all(send, mesh, ep, 0, 1))
+    split = params["w_down"].shape[1] < cfg.d_ff            # f over tp
+    y = _experts(params, recv, split)
+    if split:
+        y = rt.reduce_tp(y).to(x.dtype)
+    back = all_to_all(y, mesh, ep, 1, 0).reshape(-1, d)     # (E·C, d)
+    return _combine(back, how, T, cfg.experts_per_token)
 
 
 def moe_dense_reference(params, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -10,7 +10,8 @@ the engine programs against:
             extra_embed=None)                                → logits
     decode_step(params, tok, cache, block_tables, pos,
                 lanes=None)                                  → logits
-    init_cache(total_pages, page_tokens, rt, device, lanes=1) → cache
+    init_cache(total_pages, page_tokens, rt, device, lanes=1,
+               layout=None)                                  → cache
 
 ``params`` is the module that ``init`` or :func:`params_from_jax`
 returns: a :class:`~repro_torch.models.transformer.Transformer`, or an
@@ -60,8 +61,8 @@ def build_model(cfg: ArchConfig) -> Model:
         prefill=lib.prefill,
         decode_step=lib.decode_step,
         init_cache=lambda total_pages, page_tokens, rt=LOCAL, device="cuda",
-        lanes=1: lib.init_cache(cfg, total_pages, page_tokens, rt, device,
-                                lanes),
+        lanes=1, layout=None: lib.init_cache(cfg, total_pages, page_tokens,
+                                             rt, device, lanes, layout),
     )
 
 

@@ -1,14 +1,27 @@
-"""Runtime: what one device needs to know beyond the ArchConfig.
+"""Runtime: the static distribution context threaded through model code.
 
-Counterpart of ``repro/models/runtime.py`` without the mesh fields —
-the port runs on one device, so the KV cache's storage type and the
-training remat policy remain: ``"none"``, or ``"full"`` (each period of
-layers recomputed in backward).  The reference's ``"dots"`` names a
-policy its code never reads.
+Counterpart of ``repro/models/runtime.py``.  It separates *what* the
+model computes (ArchConfig) from *where* it runs: the mesh and its axis
+roles, the MoE strategy, the KV cache's storage type and the training
+remat policy (``"none"``, or ``"full"``: each period of layers
+recomputed in backward; the reference's ``"dots"`` names a policy its
+code never reads).  ``Runtime()`` with no mesh (:data:`LOCAL`) is the
+one-device path.  A mesh-ful runtime (``ShardingPlan.runtime``) makes
+the model's entry points run this rank's part of the sharded program,
+with the collectives of ``distributed.collectives`` where GSPMD would
+insert them.
+
+The reference's XLA-only knobs (``scan_unroll``, ``blocked_attn``,
+``attn_block_k``, ``onehot_cache_update``, ``grouped_gqa_decode``, the
+int8 cache) have no counterpart: the kernels already run a blocked
+softmax and read K/V once a group, and the port has no scan to unroll.
+Nor has ``constrain``: GSPMD's layout hint has nothing to place where
+every tensor already is this rank's block.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -23,11 +36,23 @@ def check_remat(remat: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
+    mesh: Optional[object] = None        # a launch.mesh.ModelMesh
+    dp_axes: tuple[str, ...] = ()        # batch/data axes (("pod","data"))
+    tp_axis: Optional[str] = None        # tensor-parallel axis ("model")
+    ep_axes: tuple[str, ...] = ()        # expert-parallel axes (MoE)
+    moe: str = "local"                   # "local" | "ep"
+    attn_shard: str = "auto"             # "auto": from cache_pspecs
     kv_cache_dtype: str = "bfloat16"
     remat: str = "none"
 
     def __post_init__(self) -> None:
         check_remat(self.remat)
+        if self.moe not in ("local", "ep"):
+            raise ValueError(f"moe {self.moe!r}: 'local' or 'ep'")
+        if self.attn_shard != "auto":
+            raise ValueError(
+                f"attn_shard {self.attn_shard!r}: the port takes the KV "
+                "layout from cache_pspecs ('auto') only")
 
     def cache_dtype(self) -> torch.dtype:
         try:
@@ -36,6 +61,43 @@ class Runtime:
             raise ValueError(
                 f"kv_cache_dtype {self.kv_cache_dtype!r}: the port keeps "
                 f"{sorted(_CACHE_DTYPES)}") from None
+
+    def spec(self, *axes) -> tuple:
+        return tuple(axes)
+
+    @property
+    def dp(self):
+        """The combined data axes entry of a spec."""
+        if not self.dp_axes:
+            return None
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.axis_size(self.tp_axis) if self.sharded else 1
+
+    @property
+    def tp_index(self) -> int:
+        return self.mesh.axis_index(self.tp_axis) if self.sharded else 0
+
+    def reduce_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of the tp ranks' partial ``x`` (no mesh: ``x``)."""
+        if not self.sharded:
+            return x
+        # deferred: distributed/__init__ → sharding → this module
+        from repro_torch.distributed.collectives import all_reduce
+        return all_reduce(x, self.mesh, self.tp_axis)
+
+    def replicate_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, replicated over tp, entering work split over tp."""
+        if not self.sharded:
+            return x
+        from repro_torch.distributed.collectives import replicate
+        return replicate(x, self.mesh, self.tp_axis)
 
 
 LOCAL = Runtime()

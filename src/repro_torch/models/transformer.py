@@ -38,6 +38,18 @@ batch may hold any subset of the rows.
 MoE MLPs run on the (B·S, d) tokens, as the reference's ``_apply_mlp``
 flattens them.  A VLM prompt may carry ``extra_embed`` patch
 embeddings, projected by ``vision_proj`` and put in front of the text.
+
+Sharded execution: every entry point takes ``rt``.  With a mesh-ful
+runtime the module holds this rank's *compute view* of the weights
+(``distributed.sharding.shard_module``) and each entry point runs the
+rank's part of the reference's sharded program.  The embedding table is
+vocab-sharded over tp (a masked lookup, then a sum over tp) and the
+logits stay vocab-sharded (:func:`greedy` picks a token from them); the
+attention and dense-MLP projections are column- and row-parallel; the
+MoE MLP is expert-parallel (``moe.moe_mlp_ep``); the KV cache follows
+its :class:`~repro_torch.distributed.sharding.KVLayout`.  Norms are
+replicated.  Sharded execution covers the attention families; the
+RG-LRU, xLSTM and encoder-decoder families raise (ROADMAP slice 11).
 """
 from __future__ import annotations
 
@@ -115,24 +127,36 @@ class Block(nn.Module):
             self.post_ln1 = _param(weights["post_ln1"])
             self.post_ln2 = _param(weights["post_ln2"])
 
-    def forward(self, x: torch.Tensor, cfg: ArchConfig, attend
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cfg: ArchConfig, attend,
+                rt: Runtime = LOCAL) -> torch.Tensor:
         """``attend(attn_params, y)`` is the prefill or decode attention
         bound to this layer's KV pages."""
         y = attend(self.attn, rmsnorm(self.ln1, x))
         if self.post_norm:
             y = rmsnorm(self.post_ln1, y)
         x = x + y
-        y = rmsnorm(self.ln2, x)
-        if self.is_moe:
-            B, S, d = y.shape
-            y = moe_lib.moe_mlp(self.moe, y.reshape(B * S, d), cfg) \
-                .reshape(B, S, d)
-        else:
-            y = mlp(self.mlp, y, cfg.mlp_kind)
+        y = self.feed_forward(rmsnorm(self.ln2, x), cfg, rt)
         if self.post_norm:
             y = rmsnorm(self.post_ln2, y)
         return x + y
+
+    def feed_forward(self, y: torch.Tensor, cfg: ArchConfig,
+                     rt: Runtime = LOCAL) -> torch.Tensor:
+        """The dense MLP or the MoE on the normed y (B, S, d): under a
+        mesh, expert-parallel, or with d_ff split over tp (w_gate/w_up
+        column-, w_down row-parallel)."""
+        if self.is_moe:
+            B, S, d = y.shape
+            if rt.sharded:
+                out = moe_lib.moe_mlp_ep(self.moe, y.reshape(B * S, d), cfg,
+                                         rt)
+            else:
+                out = moe_lib.moe_mlp(self.moe, y.reshape(B * S, d), cfg)
+            return out.reshape(B, S, d)
+        if rt.sharded and cfg.d_ff % rt.tp_size == 0:
+            return rt.reduce_tp(mlp(self.mlp, rt.replicate_tp(y),
+                                    cfg.mlp_kind, partial=True)).to(y.dtype)
+        return mlp(self.mlp, y, cfg.mlp_kind)
 
 
 class RecurrentBlock(nn.Module):
@@ -297,6 +321,28 @@ def _as_reference(name: str, t: torch.Tensor):
     return {"scale": t} if name in NORMS else t
 
 
+def module_from_tree(cfg: ArchConfig, tree: dict) -> Transformer:
+    """The inverse of :func:`param_tree`: a :class:`Transformer` whose
+    parameters are the tree's tensors (shared, not copied)."""
+    def layer(sub, p):
+        if isinstance(sub, dict):
+            if set(sub) == {"scale"}:
+                return layer(sub["scale"], p)
+            return {k: layer(v, p) for k, v in sub.items()}
+        return sub[p] if isinstance(sub, list) else sub
+
+    P = len(cfg.pattern)
+    layers = [layer(tree["periods"][f"k{j}"], p)
+              for p in range(cfg.n_periods) for j in range(P)]
+    layers += [layer(tree[f"tail{j}"], None)
+               for j in range(len(cfg.tail_kinds))]
+    weights = {"embed": tree["embed"]["table"],
+               "final_norm": tree["final_norm"]["scale"], "layers": layers}
+    if "vision_proj" in tree:
+        weights["vision_proj"] = tree["vision_proj"]
+    return Transformer(cfg, weights)
+
+
 def layer_tree(layer: nn.Module) -> dict:
     """One layer's parameters as the reference's layer dict (the same
     tensors, not copies)."""
@@ -350,6 +396,8 @@ class PagedKVCache:
         default_factory=list)
     fresh: list[dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=list)
+    #: how this rank's pages hold a sharded cache (None: unsharded)
+    layout: Optional[object] = None
 
     def reset(self, lane: int) -> None:
         """Row ``lane`` of every recurrent state back to its start."""
@@ -360,11 +408,17 @@ class PagedKVCache:
 
 def init_cache(cfg: ArchConfig, total_pages: int, page_tokens: int,
                rt: Runtime = LOCAL, device="cuda",
-               lanes: int = 1) -> PagedKVCache:
+               lanes: int = 1, layout=None) -> PagedKVCache:
     """Page pools for the attention layers and ``lanes`` rows of state
-    for the recurrent ones."""
+    for the recurrent ones; under a sharded ``layout`` (a
+    ``distributed.sharding.KVLayout``), this rank's pools, which hold
+    its H_kv/tp heads when the layout splits heads."""
     kinds = layer_kinds(cfg)
-    shape = (total_pages, page_tokens, cfg.num_kv_heads, cfg.head_dim)
+    heads = cfg.num_kv_heads
+    if layout is not None:
+        check_shardable(cfg)
+        heads //= rt.tp_size if layout.heads else 1
+    shape = (total_pages, page_tokens, heads, cfg.head_dim)
     n_attn = sum(k in ATTN_KINDS for k in kinds)
     dt = rt.cache_dtype()
     recurrent = [k for k in kinds if k not in ATTN_KINDS]
@@ -374,16 +428,51 @@ def init_cache(cfg: ArchConfig, total_pages: int, page_tokens: int,
         v=[torch.zeros(shape, dtype=dt, device=device)
            for _ in range(n_attn)],
         state=[_STATE[k](lanes, cfg, device) for k in recurrent],
-        fresh=[_STATE[k](1, cfg, device) for k in recurrent])
+        fresh=[_STATE[k](1, cfg, device) for k in recurrent],
+        layout=layout)
+
+
+def check_shardable(cfg: ArchConfig) -> None:
+    """Raise for a family whose sharded execution is not ported yet."""
+    other = sorted(set(layer_kinds(cfg)) - set(ATTN_KINDS))
+    if other or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: sharded execution of {other or 'encoder-decoder'} "
+            "layers is ROADMAP slice 11 (the sharding rules cover them)")
 
 
 # ============================ trunk ============================================
+def _check_layout(cache: PagedKVCache, rt: Runtime) -> None:
+    if rt.sharded and cache.layout is None:
+        raise ValueError("a mesh-ful runtime serves from a cache made with "
+                         "a KVLayout (init_cache(..., layout=))")
+
+
+def _vocab_block(model: Transformer, rt: Runtime) -> Optional[int]:
+    """The first token id of this rank's block of a vocab-sharded table
+    (None: the table is whole)."""
+    n = model.embed.shape[0]
+    return rt.tp_index * n if n < model.cfg.padded_vocab else None
+
+
 def embed_inputs(model: Transformer, tokens: torch.Tensor,
-                 extra_embed: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 extra_embed: Optional[torch.Tensor] = None,
+                 rt: Runtime = LOCAL) -> torch.Tensor:
     """Token embeddings, with ``extra_embed`` (B, N, d) patch embeddings
-    projected by ``vision_proj`` in front when given."""
-    x = embed(model.embed, tokens, scale_by_sqrt_dim=model.cfg.embed_scale)
+    projected by ``vision_proj`` in front when given.  A vocab-sharded
+    table looks up the ids of its block (zeros elsewhere) and the ranks'
+    rows are summed over tp."""
+    lo = _vocab_block(model, rt)
+    if lo is None:
+        x = embed(model.embed, tokens,
+                  scale_by_sqrt_dim=model.cfg.embed_scale)
+    else:
+        n = model.embed.shape[0]
+        ids = tokens - lo
+        hit = ((ids >= 0) & (ids < n))[..., None]
+        x = embed(model.embed, ids.clamp(0, n - 1),
+                  scale_by_sqrt_dim=model.cfg.embed_scale)
+        x = rt.reduce_tp(torch.where(hit, x, torch.zeros_like(x)))
     if extra_embed is not None:
         v = extra_embed.to(x.dtype) @ model.vision_proj
         x = torch.cat([v, x], dim=1)
@@ -408,32 +497,59 @@ def _recurrent(layer: RecurrentBlock, x: torch.Tensor, cfg: ArchConfig,
     return x
 
 
-def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+def _logits(model: Transformer, x: torch.Tensor,
+            rt: Runtime = LOCAL) -> torch.Tensor:
+    """Logits against the tied table: under a vocab-sharded table, this
+    rank's block of the vocabulary (the reference constrains its logits
+    to ``(dp, None, tp)``), padded ids masked by their global id."""
     cfg = model.cfg
     x = rmsnorm(model.final_norm, x)
-    return unembed(model.embed, x, cfg.vocab_size,
+    lo = _vocab_block(model, rt)
+    if lo is None:
+        return unembed(model.embed, x, cfg.vocab_size,
+                       cap=cfg.final_logit_softcap)
+    n = model.embed.shape[0]
+    return unembed(model.embed, rt.replicate_tp(x),
+                   min(max(cfg.vocab_size - lo, 0), n),
                    cap=cfg.final_logit_softcap)
 
 
+def greedy(model: Transformer, logits: torch.Tensor,
+           rt: Runtime = LOCAL) -> torch.Tensor:
+    """The greedy token (int64, logits' shape without the vocab dim): the
+    first of equal maxima, as ``argmax``; over vocab-sharded logits each
+    rank's (max, id) pair is gathered over tp and the first rank with
+    the largest max wins."""
+    val, idx = logits.float().max(dim=-1)
+    lo = _vocab_block(model, rt)
+    if lo is None:
+        return idx
+    # deferred: distributed/__init__ → sharding → models (this package)
+    from repro_torch.distributed.collectives import all_gather
+    vals = all_gather(val[None], rt.mesh, rt.tp_axis, 0)
+    ids = all_gather((idx + lo)[None], rt.mesh, rt.tp_axis, 0)
+    return ids.gather(0, vals.argmax(dim=0, keepdim=True))[0]
+
+
 def _train_layer(layer: nn.Module, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, rt: Runtime) -> torch.Tensor:
     if layer.kind in ATTN_KINDS:
         return layer(x, cfg, lambda p, y: attn.attention_block(
-            p, y, cfg, layer.kind, positions))
+            p, y, cfg, layer.kind, positions, rt), rt)
     state = _STATE[layer.kind](x.shape[0], cfg, x.device)
     return layer(x, cfg, state, False)[0]
 
 
 def _train_layers(layers, x: torch.Tensor, cfg: ArchConfig,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor, rt: Runtime) -> torch.Tensor:
     for layer in layers:
-        x = _train_layer(layer, x, cfg, positions)
+        x = _train_layer(layer, x, cfg, positions, rt)
     return x
 
 
 def forward_train(model: Transformer, tokens: torch.Tensor,
                   extra_embed: Optional[torch.Tensor] = None,
-                  remat: str = "none") -> torch.Tensor:
+                  remat: str = "none", rt: Runtime = LOCAL) -> torch.Tensor:
     """(B,S) tokens → (B,S',V_padded) logits at every position (S'
     counts a VLM prefix of ``extra_embed`` (B, N, d) patch embeddings),
     as the reference's ``forward_train``: dense attention (never the
@@ -444,7 +560,9 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
     as they are, as in the reference."""
     check_remat(remat)
     cfg = model.cfg
-    x = embed_inputs(model, tokens, extra_embed)
+    if rt.sharded:
+        check_shardable(cfg)
+    x = embed_inputs(model, tokens, extra_embed, rt)
     positions = torch.arange(x.shape[1], device=x.device)
     P = len(cfg.pattern)
     layers = list(model.layers)
@@ -452,18 +570,19 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
         period = layers[p * P:(p + 1) * P]
         if remat == "full":
             x = torch.utils.checkpoint.checkpoint(
-                _train_layers, period, x, cfg, positions,
+                _train_layers, period, x, cfg, positions, rt,
                 use_reentrant=False)
         else:
-            x = _train_layers(period, x, cfg, positions)
-    x = _train_layers(layers[cfg.n_periods * P:], x, cfg, positions)
-    return _logits(model, x)
+            x = _train_layers(period, x, cfg, positions, rt)
+    x = _train_layers(layers[cfg.n_periods * P:], x, cfg, positions, rt)
+    return _logits(model, x, rt)
 
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, cache: PagedKVCache,
             block_tables: torch.Tensor, lanes: Optional[torch.Tensor] = None,
-            extra_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+            extra_embed: Optional[torch.Tensor] = None,
+            rt: Runtime = LOCAL) -> torch.Tensor:
     """(B,S) prompt tokens → (B,1,V_padded) last-position logits.
 
     Every attention layer's K/V for positions 0..S-1 is written into the
@@ -473,38 +592,44 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: PagedKVCache,
     from a fresh cache) and leaves its final state there.  With
     ``extra_embed`` (B, N, d) the sequence is the N projected patch
     embeddings and then the S tokens, at positions 0..N+S-1, and its
-    pages must hold N+S tokens; decode continues at N+S."""
+    pages must hold N+S tokens; decode continues at N+S.  Under a mesh
+    the logits are this rank's block of the vocabulary."""
     cfg = model.cfg
-    x = embed_inputs(model, tokens, extra_embed)
+    _check_layout(cache, rt)
+    x = embed_inputs(model, tokens, extra_embed, rt)
     rows = _rows(lanes, x)
     for layer, j in zip(model.layers, model.slots):
         if layer.kind in ATTN_KINDS:
             x = layer(x, cfg, lambda p, y, j=j, kind=layer.kind:
                       attn.prefill_attention(p, y, cfg, kind, cache.k[j],
-                                             cache.v[j], block_tables))
+                                             cache.v[j], block_tables, rt,
+                                             cache.layout), rt)
         else:
             x = _recurrent(layer, x, cfg, cache.state[j], rows, False)
-    return _logits(model, x[:, -1:, :])
+    return _logits(model, x[:, -1:, :], rt)
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, tokens: torch.Tensor,
                 cache: PagedKVCache, block_tables: torch.Tensor,
                 positions: torch.Tensor,
-                lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lanes: Optional[torch.Tensor] = None,
+                rt: Runtime = LOCAL) -> torch.Tensor:
     """tokens (B,1), sequence b's token at ``positions[b]`` with its
     recurrent state in row ``lanes[b]`` (default b) → (B,1,V) logits;
     one KV slot per sequence and attention layer written, each
     recurrent state advanced one step."""
     cfg = model.cfg
-    x = embed_inputs(model, tokens)
+    _check_layout(cache, rt)
+    x = embed_inputs(model, tokens, rt=rt)
     rows = _rows(lanes, x)
     for layer, j in zip(model.layers, model.slots):
         if layer.kind in ATTN_KINDS:
             x = layer(x, cfg, lambda p, y, j=j, kind=layer.kind:
                       attn.decode_attention(p, y, cfg, kind, cache.k[j],
                                             cache.v[j], block_tables,
-                                            positions))
+                                            positions, rt, cache.layout),
+                      rt)
         else:
             x = _recurrent(layer, x, cfg, cache.state[j], rows, True)
-    return _logits(model, x)
+    return _logits(model, x, rt)

@@ -58,11 +58,15 @@ def _topk_decompress(kept: torch.Tensor, idx: torch.Tensor, shape
     return flat.reshape(shape)
 
 
-def _int8_compress(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _int8_compress(g: torch.Tensor, reduce_max=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     gf = g.float()
+    amax = gf.abs().max()
+    if reduce_max is not None:          # g is one rank's block of the leaf
+        amax = reduce_max(amax)
     # XLA folds the reference's ``/ 127.0`` into a product with the
     # float32 reciprocal
-    scale = gf.abs().max().clamp_min(1e-12) * (1.0 / 127.0)
+    scale = amax.clamp_min(1e-12) * (1.0 / 127.0)
     q = torch.round(gf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 
@@ -78,15 +82,22 @@ def init_error_state(params: Any) -> Any:
         params)
 
 
-def compress_grads(grads: Any, error: Any, cfg: CompressorConfig
-                   ) -> tuple[Any, Any]:
+def compress_grads(grads: Any, error: Any, cfg: CompressorConfig,
+                   reduce_max=None) -> tuple[Any, Any]:
     """Returns (decompressed grads after the lossy round-trip, new error
     state).  The round-trip models exactly what the cross-pod wire
-    carries, leaf by stacked leaf."""
+    carries, leaf by stacked leaf.  Where each rank holds a block of
+    every leaf, ``reduce_max`` takes a block's max|g| to the whole
+    leaf's (int8 only: top-k's k of a whole leaf has no sharded form —
+    fault C12 — and is refused)."""
     if cfg.kind == "none":
         return grads, error
     if cfg.kind not in ("topk", "int8"):
         raise ValueError(cfg.kind)
+    if cfg.kind == "topk" and reduce_max is not None:
+        raise NotImplementedError(
+            "top-k compression of sharded gradients: the reference's "
+            "jitted step cannot run top-k at all (fault C12)")
 
     def one(g, e):
         s = stacked(g)
@@ -96,7 +107,7 @@ def compress_grads(grads: Any, error: Any, cfg: CompressorConfig
             approx = _topk_decompress(kept, idx, s.shape)
             new_e = corrected - approx
         else:
-            q, scale = _int8_compress(corrected)
+            q, scale = _int8_compress(corrected, reduce_max)
             approx = _int8_decompress(q, scale)
             # corrected − q·scale, contracted as XLA contracts it
             new_e = fma(-q.float(), scale, corrected)

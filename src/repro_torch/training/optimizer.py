@@ -111,9 +111,13 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.stack(sums).sum().sqrt()
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float, norm=None
                         ) -> tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+    """``grads`` scaled to a global norm of at most ``max_norm``; ``norm``
+    is that norm where the caller has it (a sharded step sums over its
+    ranks), else :func:`global_norm` of ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = (max_norm / norm.clamp_min(1e-9)).clamp_max(1.0)
     return map_tensors(lambda g: (g.float() * scale).to(g.dtype),
                        grads), norm
@@ -128,10 +132,13 @@ def _decay_mask(path) -> bool:
 
 
 def adamw_update(params: Any, grads: Any, state: AdamWState,
-                 cfg: OptimizerConfig) -> tuple[Any, AdamWState, dict]:
+                 cfg: OptimizerConfig, grad_norm=None
+                 ) -> tuple[Any, AdamWState, dict]:
     """One AdamW step: (new params, new state, {"lr", "grad_norm",
-    "step"}), all new tensors (the inputs are left as they are)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    "step"}), all new tensors (the inputs are left as they are).
+    ``grad_norm`` is the gradients' global norm where the caller holds
+    only its shards of them (see :func:`clip_by_global_norm`)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
     step = state.step + 1
     lr = lr_schedule(state.step, cfg)
     b1, b2 = cfg.b1, cfg.b2

@@ -63,7 +63,12 @@ def make_train_step(model: Model, tcfg: TrainConfig,
                     rt: Runtime = LOCAL) -> Callable:
     """Builds the (params, opt, err, batch) → (params, opt, err,
     metrics) step; ``params`` is the model's module, updated in place
-    (and returned)."""
+    (and returned).  With a mesh-ful ``rt`` it is the sharded step:
+    ``params`` a ``distributed.sharding.ShardedParams`` whose shards are
+    updated in place, ``opt`` and ``err`` made over its shards, and the
+    batch this rank's rows (see :func:`_sharded_step`)."""
+    if rt.sharded:
+        return _sharded_step(model, tcfg, rt)
 
     def step_fn(params, opt_state: AdamWState, err_state, batch):
         tree = param_tree(params)
@@ -103,6 +108,63 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     return step_fn
 
 
+def _sharded_step(model: Model, tcfg: TrainConfig, rt: Runtime) -> Callable:
+    """The reference's jitted train step under a mesh, written out: the
+    FSDP dims gathered into the compute view, the forward and a
+    vocab-parallel loss on the rank's rows, the gradients reduced to the
+    stored blocks (:func:`~repro_torch.distributed.sharding.reduce_grads`),
+    int8 compression with each leaf's max over the mesh, and AdamW on
+    the blocks with the global norm counting each element once."""
+    from repro_torch.distributed.collectives import all_max
+    from repro_torch.distributed.sharding import gather_params, grad_norm, \
+        reduce_grads
+    from repro_torch.training.loss import lm_loss_sharded
+
+    def step_fn(params, opt_state: AdamWState, err_state, batch):
+        mesh = params.plan.mesh
+        n = params.module.embed.shape[0]
+        if n * rt.tp_size != model.cfg.padded_vocab:
+            raise ValueError(f"{model.cfg.name}: the vocab-parallel loss "
+                             f"needs the table split over tp ({n} rows)")
+        gather_params(params)
+        tree = param_tree(params.module)
+        flat = tensors(tree)
+        for t in flat:
+            t.requires_grad_(True)
+        logits = model.forward_train(params.module, batch["tokens"],
+                                     extra_embed=batch.get("extra_embed"),
+                                     remat=rt.remat, rt=rt)
+        tgt = batch["targets"]
+        logits = logits[:, -tgt.shape[1]:, :]
+        share, metrics = lm_loss_sharded(logits, tgt, batch.get("mask"), rt,
+                                         rt.tp_index * n)
+        grads = torch.autograd.grad(share, flat, allow_unused=True,
+                                    materialize_grads=True)
+        del logits
+        for t in flat:
+            t.requires_grad_(False)
+        grads = reduce_grads(params, unflatten_tensors(tree, list(grads)))
+        grads, err_state = compress_grads(
+            grads, err_state, tcfg.compressor,
+            reduce_max=lambda m: all_max(m, mesh, mesh.axis_names))
+        with torch.no_grad():
+            new_tree, new_opt, opt_metrics = adamw_update(
+                params.shards, grads, opt_state, tcfg.optimizer,
+                grad_norm=grad_norm(params, grads))
+            ok = bool(torch.isfinite(metrics["loss"])
+                      & torch.isfinite(opt_metrics["grad_norm"]))
+            if ok:
+                for t, new in zip(tensors(params.shards),
+                                  tensors(new_tree)):
+                    t.copy_(new)
+                opt_state = new_opt
+        metrics = {**metrics, **opt_metrics,
+                   "skipped": torch.tensor(0.0 if ok else 1.0)}
+        return params, opt_state, err_state, metrics
+
+    return step_fn
+
+
 class TrainLoop:
     """``params`` (the model's module) is trained in place; without it
     the model is initialised from ``gen`` (default: a generator on
@@ -119,6 +181,10 @@ class TrainLoop:
                 f"{model.cfg.name}: an encoder-decoder model trains on "
                 "frames, and the synthetic data pipeline gives none (fault "
                 "C11: the reference's TrainLoop fails the same way)")
+        if rt.sharded:
+            raise NotImplementedError(
+                "TrainLoop runs on one device; a mesh-ful runtime trains "
+                "through make_train_step with ShardedParams")
         self.model = model
         self.data = data
         self.tcfg = tcfg
