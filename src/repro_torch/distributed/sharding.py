@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple
 
 import torch
 
@@ -65,15 +65,9 @@ class ShardingPlan:
     def dp_size(self) -> int:
         return self.mesh.axis_size(tuple(self.dp_axes))
 
-    def runtime(self, moe: Optional[str] = None, **kw) -> Runtime:
-        return Runtime(
-            mesh=self.mesh,
-            dp_axes=self.dp_axes,
-            tp_axis=self.tp_axis,
-            ep_axes=self.dp_axes,
-            moe=moe or ("ep" if self.cfg.is_moe else "local"),
-            **kw,
-        )
+    def runtime(self, **kw) -> Runtime:
+        return Runtime(mesh=self.mesh, dp_axes=self.dp_axes,
+                       tp_axis=self.tp_axis, **kw)
 
     # -- helpers -------------------------------------------------------------
     def _div(self, n: int, axis) -> bool:

@@ -168,7 +168,7 @@ def moe_mlp_ep(params, x: torch.Tensor, cfg, rt) -> torch.Tensor:
     from repro_torch.distributed.collectives import all_to_all
     T, d = x.shape
     E = cfg.num_experts
-    mesh, ep = rt.mesh, rt.ep_axes
+    mesh, ep = rt.mesh, rt.dp_axes                 # experts over data
     if E % mesh.axis_size(ep):
         raise ValueError(f"{cfg.name}: {E} experts over {ep} "
                          f"({mesh.axis_size(ep)} ranks)")

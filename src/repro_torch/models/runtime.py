@@ -2,14 +2,18 @@
 
 Counterpart of ``repro/models/runtime.py``.  It separates *what* the
 model computes (ArchConfig) from *where* it runs: the mesh and its axis
-roles, the MoE strategy, the KV cache's storage type and the training
-remat policy (``"none"``, or ``"full"``: each period of layers
-recomputed in backward; the reference's ``"dots"`` names a policy its
-code never reads).  ``Runtime()`` with no mesh (:data:`LOCAL`) is the
-one-device path.  A mesh-ful runtime (``ShardingPlan.runtime``) makes
-the model's entry points run this rank's part of the sharded program,
-with the collectives of ``distributed.collectives`` where GSPMD would
-insert them.
+roles, the KV cache's storage type and the training remat policy
+(``"none"``, or ``"full"``: each period of layers recomputed in
+backward; the reference's ``"dots"`` names a policy its code never
+reads).  ``Runtime()`` with no mesh (:data:`LOCAL`) is the one-device
+path.  A mesh-ful runtime (``ShardingPlan.runtime``) makes the model's
+entry points run this rank's part of the sharded program, with the
+collectives of ``distributed.collectives`` where GSPMD would insert
+them.  A MoE layer then runs expert-parallel, its experts over the data
+axes as the sharding rules put them, and the KV layout (head- or
+sequence-sharded) comes from ``cache_pspecs``: the reference's
+``moe``, ``attn_shard`` and ``ep_axes`` (always its data axes) have no
+counterpart.
 
 The reference's XLA-only knobs (``scan_unroll``, ``blocked_attn``,
 ``attn_block_k``, ``onehot_cache_update``, ``grouped_gqa_decode``, the
@@ -39,20 +43,11 @@ class Runtime:
     mesh: Optional[object] = None        # a launch.mesh.ModelMesh
     dp_axes: tuple[str, ...] = ()        # batch/data axes (("pod","data"))
     tp_axis: Optional[str] = None        # tensor-parallel axis ("model")
-    ep_axes: tuple[str, ...] = ()        # expert-parallel axes (MoE)
-    moe: str = "local"                   # "local" | "ep"
-    attn_shard: str = "auto"             # "auto": from cache_pspecs
     kv_cache_dtype: str = "bfloat16"
     remat: str = "none"
 
     def __post_init__(self) -> None:
         check_remat(self.remat)
-        if self.moe not in ("local", "ep"):
-            raise ValueError(f"moe {self.moe!r}: 'local' or 'ep'")
-        if self.attn_shard != "auto":
-            raise ValueError(
-                f"attn_shard {self.attn_shard!r}: the port takes the KV "
-                "layout from cache_pspecs ('auto') only")
 
     def cache_dtype(self) -> torch.dtype:
         try:
@@ -61,16 +56,6 @@ class Runtime:
             raise ValueError(
                 f"kv_cache_dtype {self.kv_cache_dtype!r}: the port keeps "
                 f"{sorted(_CACHE_DTYPES)}") from None
-
-    def spec(self, *axes) -> tuple:
-        return tuple(axes)
-
-    @property
-    def dp(self):
-        """The combined data axes entry of a spec."""
-        if not self.dp_axes:
-            return None
-        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
 
     @property
     def sharded(self) -> bool:

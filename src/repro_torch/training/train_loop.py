@@ -59,6 +59,22 @@ class TrainConfig:
     log_every: int = 10
 
 
+@dataclasses.dataclass(frozen=True)
+class _StepHooks:
+    """What a mesh changes in the train step; the defaults are the one
+    device's.  ``prepare(params)`` → (the module the forward runs on,
+    the tree of stored tensors AdamW updates); ``loss(logits, targets,
+    mask)``; ``reduce_grads(params, grads)`` → the gradients of the
+    stored tensors; ``grad_norm(params, grads)`` → their global norm
+    (None: AdamW's own); ``reduce_max`` → the int8 compressor's max of a
+    leaf over the ranks holding its blocks (None: one device)."""
+    prepare: Callable = lambda params: (params, param_tree(params))
+    loss: Callable = lm_loss
+    reduce_grads: Callable = lambda params, grads: grads
+    grad_norm: Callable = lambda params, grads: None
+    reduce_max: Optional[Callable] = None
+
+
 def make_train_step(model: Model, tcfg: TrainConfig,
                     rt: Runtime = LOCAL) -> Callable:
     """Builds the (params, opt, err, batch) → (params, opt, err,
@@ -66,39 +82,44 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     (and returned).  With a mesh-ful ``rt`` it is the sharded step:
     ``params`` a ``distributed.sharding.ShardedParams`` whose shards are
     updated in place, ``opt`` and ``err`` made over its shards, and the
-    batch this rank's rows (see :func:`_sharded_step`)."""
-    if rt.sharded:
-        return _sharded_step(model, tcfg, rt)
+    batch this rank's rows (see :func:`_mesh_hooks`)."""
+    hooks = _mesh_hooks(model, rt) if rt.sharded else _StepHooks()
 
     def step_fn(params, opt_state: AdamWState, err_state, batch):
-        tree = param_tree(params)
+        module, stored = hooks.prepare(params)
+        tree = param_tree(module)
         flat = tensors(tree)
         for t in flat:
             t.requires_grad_(True)
-        logits = model.forward_train(params, batch["tokens"],
+        logits = model.forward_train(module, batch["tokens"],
                                      extra_embed=batch.get("extra_embed"),
-                                     remat=rt.remat)
+                                     remat=rt.remat, rt=rt)
         tgt = batch["targets"]
         logits = logits[:, -tgt.shape[1]:, :]
-        loss, metrics = lm_loss(logits, tgt, batch.get("mask"))
+        loss, metrics = hooks.loss(logits, tgt, batch.get("mask"))
         grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                     materialize_grads=True)
         del logits
-        grads = unflatten_tensors(tree, list(grads))
+        for t in flat:
+            t.requires_grad_(False)
+        grads = hooks.reduce_grads(
+            params, unflatten_tensors(tree, list(grads)))
         metrics = {k: v.detach() for k, v in metrics.items()}
 
         # gradient compression round-trip (cross-pod wire format)
-        grads, err_state = compress_grads(grads, err_state, tcfg.compressor)
+        grads, err_state = compress_grads(grads, err_state, tcfg.compressor,
+                                          reduce_max=hooks.reduce_max)
 
         with torch.no_grad():
             new_tree, new_opt, opt_metrics = adamw_update(
-                tree, grads, opt_state, tcfg.optimizer)
+                stored, grads, opt_state, tcfg.optimizer,
+                grad_norm=hooks.grad_norm(params, grads))
             # NaN-step rejection: keep the old state when loss/grads blew
             # up (one read of a flag back to the host)
             ok = bool(torch.isfinite(metrics["loss"])
                       & torch.isfinite(opt_metrics["grad_norm"]))
             if ok:
-                for t, new in zip(flat, tensors(new_tree)):
+                for t, new in zip(tensors(stored), tensors(new_tree)):
                     t.copy_(new)
                 opt_state = new_opt
         metrics = {**metrics, **opt_metrics,
@@ -108,7 +129,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     return step_fn
 
 
-def _sharded_step(model: Model, tcfg: TrainConfig, rt: Runtime) -> Callable:
+def _mesh_hooks(model: Model, rt: Runtime) -> _StepHooks:
     """The reference's jitted train step under a mesh, written out: the
     FSDP dims gathered into the compute view, the forward and a
     vocab-parallel loss on the rank's rows, the gradients reduced to the
@@ -120,49 +141,24 @@ def _sharded_step(model: Model, tcfg: TrainConfig, rt: Runtime) -> Callable:
         reduce_grads
     from repro_torch.training.loss import lm_loss_sharded
 
-    def step_fn(params, opt_state: AdamWState, err_state, batch):
-        mesh = params.plan.mesh
-        n = params.module.embed.shape[0]
-        if n * rt.tp_size != model.cfg.padded_vocab:
-            raise ValueError(f"{model.cfg.name}: the vocab-parallel loss "
-                             f"needs the table split over tp ({n} rows)")
-        gather_params(params)
-        tree = param_tree(params.module)
-        flat = tensors(tree)
-        for t in flat:
-            t.requires_grad_(True)
-        logits = model.forward_train(params.module, batch["tokens"],
-                                     extra_embed=batch.get("extra_embed"),
-                                     remat=rt.remat, rt=rt)
-        tgt = batch["targets"]
-        logits = logits[:, -tgt.shape[1]:, :]
-        share, metrics = lm_loss_sharded(logits, tgt, batch.get("mask"), rt,
-                                         rt.tp_index * n)
-        grads = torch.autograd.grad(share, flat, allow_unused=True,
-                                    materialize_grads=True)
-        del logits
-        for t in flat:
-            t.requires_grad_(False)
-        grads = reduce_grads(params, unflatten_tensors(tree, list(grads)))
-        grads, err_state = compress_grads(
-            grads, err_state, tcfg.compressor,
-            reduce_max=lambda m: all_max(m, mesh, mesh.axis_names))
-        with torch.no_grad():
-            new_tree, new_opt, opt_metrics = adamw_update(
-                params.shards, grads, opt_state, tcfg.optimizer,
-                grad_norm=grad_norm(params, grads))
-            ok = bool(torch.isfinite(metrics["loss"])
-                      & torch.isfinite(opt_metrics["grad_norm"]))
-            if ok:
-                for t, new in zip(tensors(params.shards),
-                                  tensors(new_tree)):
-                    t.copy_(new)
-                opt_state = new_opt
-        metrics = {**metrics, **opt_metrics,
-                   "skipped": torch.tensor(0.0 if ok else 1.0)}
-        return params, opt_state, err_state, metrics
+    n = model.cfg.padded_vocab // rt.tp_size
 
-    return step_fn
+    def prepare(params):
+        rows = params.module.embed.shape[0]
+        if rows * rt.tp_size != model.cfg.padded_vocab:
+            raise ValueError(f"{model.cfg.name}: the vocab-parallel loss "
+                             f"needs the table split over tp ({rows} rows)")
+        gather_params(params)
+        return params.module, params.shards
+
+    mesh = rt.mesh
+    return _StepHooks(
+        prepare=prepare,
+        loss=lambda logits, tgt, mask: lm_loss_sharded(
+            logits, tgt, mask, rt, rt.tp_index * n),
+        reduce_grads=reduce_grads,
+        grad_norm=grad_norm,
+        reduce_max=lambda m: all_max(m, mesh, mesh.axis_names))
 
 
 class TrainLoop:

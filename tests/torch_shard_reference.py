@@ -96,8 +96,8 @@ def serve(arch, over, mesh_shape, tokens, fed, extra, max_seq):
 
 
 def train(arch, over, mesh_shape, tokens, targets, extra):
-    """One sharded train step (tests/test_distributed.py's): the loss and
-    the new params' leaves."""
+    """One sharded train step (tests/test_distributed.py's): the loss,
+    the new params' leaves and the new first moments' leaves."""
     cfg = reduced(arch, **over)
     model = build_model(cfg)
     mesh = auto_mesh(mesh_shape)
@@ -110,17 +110,18 @@ def train(arch, over, mesh_shape, tokens, targets, extra):
             logits = model.forward_train(pp, tok, rt=rt, extra_embed=e)
             return lm_loss(logits[:, -tgt.shape[1]:, :], tgt)[0]
         loss, grads = jax.value_and_grad(loss_fn)(p)
-        return loss, adamw_update(p, grads, o, ocfg)[0]
+        new, state, _ = adamw_update(p, grads, o, ocfg)
+        return loss, new, state.mu
 
     p = model.init(jax.random.PRNGKey(0))
     p = put(p, param_pspecs(plan, p), mesh)
     sh = rows(mesh, tokens.shape[0], mesh_shape[0])
     e = None if extra is None else jax.device_put(jnp.asarray(extra), sh)
-    loss, new = jax.jit(step)(p, adamw_init(p),
-                              jax.device_put(jnp.asarray(tokens), sh),
-                              jax.device_put(jnp.asarray(targets), sh), e)
-    return float(loss), [np.asarray(x, np.float32)
-                         for x in jax.tree.leaves(new)]
+    loss, new, mu = jax.jit(step)(p, adamw_init(p),
+                                  jax.device_put(jnp.asarray(tokens), sh),
+                                  jax.device_put(jnp.asarray(targets), sh), e)
+    return float(loss), *([np.asarray(x, np.float32)
+                           for x in jax.tree.leaves(t)] for t in (new, mu))
 
 
 def moe_ep(arch, over, mesh_shape, x):
