@@ -132,10 +132,23 @@ each reported on its own line:
    float32 steps against 2 single-device steps (losses, params, each
    leaf's update and first moment), then 2 bfloat16 steps
    with ms and peak memory a rank; (e) the dry-run of qwen3-8b
-   decode_32k on 16×16 and its roofline under the card's peaks; then
-   flash and paged at 16 local heads over 4 KV heads and the partial
-   route (a window across two ranks' blocks, empty blocks) against
-   their plain versions, timed beside SDPA.
+   decode_32k on 16×16 and its roofline under the card's peaks; (f)
+   one launch of 1×2 ranks serving, in turn and each freed before the
+   next, full-width, full-depth recurrentgemma-2b (4 prompts of
+   2,100–2,600 tokens past its 2,048 window; its one KV head does not
+   split, so every paged launch is the partial route), xlstm-350m (4
+   prompts of 32–64 tokens) and whisper-small through its entry points
+   (2 prompts over 1,500 frames each; KV heads split, every paged
+   launch split), 8 greedy steps each: launches by route, the same
+   tokens on every rank, then a float32 pass holding every layer (its
+   attention and MLP, RG-LRU block, xLSTM cell, encoder or decoder
+   layer) within 1e-4·max|ref − in| of rank 0's single-device float32
+   layer on the same input; then flash and paged at 16 local heads over
+   4 KV heads and the partial route (a window across two ranks' blocks,
+   empty blocks), and (f)'s new shapes (flash at dh 256 with 5 local
+   heads over 1 KV head and a window of 2,048; the partial route at dh
+   256, G 10, window 2,048) against their plain versions, timed beside
+   SDPA.
 
 Then a ``timer`` line gives each kernel, the kernel it replaced and the
 library call timed once more with the first port's serial timer (host
@@ -3606,6 +3619,8 @@ MSHARD_MU_SHARE = 2e-3
 #: one H100 SXM's NVLink 4 bandwidth each way (NVIDIA data sheet: 900
 #: GB/s in all, both ways), the roofline's link term
 NVLINK_BYTES_S = 450e9
+#: seconds of the parts the ``seconds:`` line names besides the phases
+PHASE_SECONDS: dict = {}
 
 
 def mshard_counts(fa_mod, pa_mod, reset: bool = False) -> dict:
@@ -4011,6 +4026,17 @@ def mshard_train_rank(arch: str, shape: tuple, B: int, S: int,
     return out
 
 
+def mshard_plain_ms(timer, name: str, fn) -> float:
+    """A plain version's device time; where its host time outruns the
+    device wait, the serial timer's (host time inside the window)."""
+    try:
+        return timer.ms(fn)
+    except PhaseFailed:
+        print(f"model_shard: {name}'s plain version timed with the serial "
+              "timer (its host never got ahead of the device)")
+        return timer.serial_ms(fn)
+
+
 def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
     """The kernel JSON's rows at the model_shard phase's new shapes:
     flash at qwen3-8b's 16 local query heads over 4 kv heads (G 4) on 1×2,
@@ -4033,14 +4059,7 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
     rows = []
 
     def plain_ms(name, fn) -> float:
-        """A plain version's device time; where its host time outruns the
-        device wait, the serial timer's (host time inside the window)."""
-        try:
-            return timer.ms(fn)
-        except PhaseFailed:
-            print(f"model_shard: {name}'s plain version timed with the "
-                  "serial timer (its host never got ahead of the device)")
-            return timer.serial_ms(fn)
+        return mshard_plain_ms(timer, name, fn)
 
     def bound(flops, nbytes):
         t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_S
@@ -4160,6 +4179,469 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
                  f"{L} positions at offset {off}, global ctx={gctx} "
                  "(local {local}) bf16; window 40 checked too".format(
                      local=local)})
+    return rows
+
+
+#: (f) the RG-LRU, xLSTM and encoder-decoder families on one 1×2 launch,
+#: in turn: (arch, prompts (count, shortest, longest + 1), greedy decode
+#: steps on the main path, prompts and decode steps of the float32
+#: check pass); recurrentgemma's prompts pass its 2,048-token window,
+#: whisper's are decoder prompts over WHISPER_FRAMES frames each
+MSHARD_FAMILIES = (("recurrentgemma-2b", (4, 2100, 2601), 8, 2, 2),
+                   ("xlstm-350m", (4, 32, 65), 8, 2, 2),
+                   ("whisper-small", (2, 8, 17), 8, 2, 2))
+MSHARD_FAMILY_MESH = (1, 2)
+
+
+def mshard_family_inputs(torch, np, seed: int, cfg, count: int, lo: int,
+                         hi: int) -> tuple:
+    """``count`` prompts with lengths in [lo, hi) and, for an
+    encoder-decoder, their frames (bfloat16 on the card)."""
+    r = np.random.default_rng(seed + 23)
+    lens = [int(x) for x in r.integers(lo, hi, count)]
+    toks = [torch.tensor([r.integers(0, cfg.vocab_size, k).tolist()],
+                         device="cuda") for k in lens]
+    frames = None
+    if cfg.is_encoder_decoder:
+        g = torch.Generator(device="cuda").manual_seed(seed + 23)
+        frames = torch.randn(count, WHISPER_FRAMES, cfg.d_model,
+                             device="cuda", generator=g).to(torch.bfloat16)
+    return lens, toks, frames
+
+
+def mshard_fan_in_d(torch, model) -> None:
+    """Scale every attention layer's wq and wk to the fan-in d (C14: the
+    init draws them at the head count's, 16× and 50× too large for
+    recurrentgemma-2b's 10 and 1 heads, and its softmax is then so
+    nearly one-hot that two float32 orders of a layer's sums pick other
+    keys)."""
+    d = model.cfg.d_model
+    with torch.no_grad():
+        for mod in model.modules():
+            for name in ("attn", "self_attn", "cross_attn"):
+                p = getattr(mod, name, None)
+                if isinstance(p, torch.nn.ParameterDict):
+                    for w in ("wq", "wk"):
+                        p[w].mul_((p[w].shape[-2] / d) ** 0.5)
+
+
+def mshard_family_one(mesh, arch: str, inputs: tuple, steps: int,
+                      n_check: int, check_steps: int, seed: int) -> dict:
+    """One model of (f) on this rank: drawn whole from ``seed`` on the
+    card (wq and wk at the fan-in d: :func:`mshard_fan_in_d`) and cut to
+    the rank's compute view; the main path (each prompt
+    prefilled into its lane, then ``steps`` greedy steps of all lanes)
+    with the attention kernels' launches counted by route; then the same
+    weights in float32 over ``n_check`` prompts and ``check_steps``
+    steps, where rank 0 holds every layer's sharded output against its
+    single-device float32 layer on the same input (as (a)), the
+    single-device layer carrying its own KV pages, recurrent state and
+    cross K/V.  A layer is held on what it adds to its input:
+    max |out − ref| ≤ MSHARD_F32_TOL · max |ref − in|."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import kv_layout, make_plan, \
+        shard_module
+    from repro_torch.models import LOCAL, Runtime, build_model
+    from repro_torch.models import attention as attn
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tf
+    fa_mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    plan = make_plan(cfg, mesh, "serve")
+    rt = plan.runtime()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                      "cuda")
+    mshard_fan_in_d(torch, full)
+    local = shard_module(full, plan)
+    if mesh.rank:
+        del full
+        full = None
+    torch.cuda.empty_cache()
+    lens, toks, frames = inputs
+    n, T = len(lens), 16
+    unit = T * mesh.size
+    max_seq = -(-(max(lens) + steps) // unit) * unit
+    layout = kv_layout(plan, n, max_seq)
+    mp = layout.block_len(mesh) // T
+    tables = torch.arange(n * mp, dtype=torch.int32,
+                          device="cuda").reshape(n, mp)
+    pos0 = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    def run(cache, k, n_decode, state=None):
+        """Prefill the first ``k`` prompts one by one into lanes 0..k-1,
+        then ``n_decode`` greedy steps of the k together: the tokens,
+        each decode step's host ms and its collectives' host ms."""
+        first = []
+        for b in range(k):
+            if state is not None:
+                state.update(mode="prefill", rows=slice(b, b + 1))
+            ex = None if frames is None else frames[b:b + 1]
+            lg = model.prefill(local, toks[b], cache, tables[b:b + 1],
+                               lanes=torch.tensor([b], device="cuda"),
+                               extra_embed=ex, rt=rt)
+            first.append(tf.greedy(local, lg, rt))
+        nxt = torch.cat(first)
+        out, ms, coll = [nxt], [], []
+        for t in range(n_decode):
+            if state is not None:
+                state.update(mode="decode", rows=slice(0, k),
+                             pos=pos0[:k] + t)
+            torch.cuda.synchronize()
+            c0, t0 = mesh.tally["seconds"], time.perf_counter()
+            lg = model.decode_step(local, nxt, cache, tables[:k],
+                                   pos0[:k] + t, rt=rt)
+            nxt = tf.greedy(local, lg, rt)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            coll.append(1e3 * (mesh.tally["seconds"] - c0))
+            out.append(nxt)
+        return torch.cat(out, dim=1), ms, coll
+
+    # the main path, its launches counted
+    cache = model.init_cache(n * mp, T, rt, "cuda", lanes=n, layout=layout)
+    plain_on_cuda = {"flash": 0, "paged": 0}
+    saved = guard_plain(fa_mod, pa_mod, plain_on_cuda)
+    saved_partial = guard_partial(pa_mod, plain_on_cuda)
+    try:
+        mshard_counts(fa_mod, pa_mod, reset=True)
+        mesh.reset_tally()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, ms, coll = run(cache, n, steps)
+        wall = time.perf_counter() - t0
+        counts = mshard_counts(fa_mod, pa_mod)
+        tally = {k: (dict(v) if isinstance(v, dict) else v)
+                 for k, v in mesh.tally.items()}
+    finally:
+        fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
+        pa_mod.reference_paged_attention_partial = saved_partial
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the check pass in float32 (the config's dtype too: the encoder
+    # casts its frames to it)
+    del cache
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    local.float().cfg = cfg
+    f32 = plan.runtime(kv_cache_dtype="float32")
+    cache = model.init_cache(n * mp, T, f32, "cuda", lanes=n, layout=layout)
+    torch.cuda.empty_cache()
+    stats: dict = {}
+    state: dict = {}
+    hooks, originals = [], {}
+    if full is not None:
+        full.float().cfg = cfg
+        fpages = n * max_seq // T
+        fcache = model.init_cache(fpages, T, Runtime(kv_cache_dtype="float32"),
+                                  "cuda", lanes=n)
+        ftables = torch.arange(fpages, dtype=torch.int32,
+                               device="cuda").reshape(n, -1)
+        fcross = {}
+
+        def attend_single(kind, j):
+            rows = ftables[state["rows"]]
+            k_pages, v_pages = fcache.k[j], fcache.v[j]
+            if state["mode"] == "prefill":
+                return lambda p, y: attn.prefill_attention(
+                    p, y, cfg, kind, k_pages, v_pages, rows)
+            return lambda p, y: attn.decode_attention(
+                p, y, cfg, kind, k_pages, v_pages, rows, state["pos"])
+
+        def single(stack, i, args):
+            """Layer i of ``stack`` on one device, on the sharded
+            layer's input."""
+            x = args[0]
+            rows = torch.arange(n, device="cuda")[state["rows"]]
+            if stack == "enc":
+                return full.enc_layers[i](x, cfg)
+            if stack == "dec":
+                return full.dec_layers[i](
+                    x, cfg, attend_single("global", i),
+                    {k: t[i][rows] for k, t in fcross.items()})
+            lay, j = full.layers[i], full.slots[i]
+            if lay.kind in tf.ATTN_KINDS:
+                return lay(x, cfg, attend_single(lay.kind, j))
+            return tf._recurrent(lay, x, cfg, fcache.state[j], rows,
+                                 state["mode"] == "decode")
+
+        def hook(stack, i, kind):
+            def fn(mod, args, out):
+                got = out[0] if isinstance(out, tuple) else out
+                ref = single(stack, i, args)
+                stats.setdefault(kind, []).append(
+                    float((got - ref).abs().max()) / (MSHARD_F32_TOL * float(
+                        (ref - args[0]).abs().max())))
+            return fn
+
+        if cfg.is_encoder_decoder:
+            stacks = [("enc", local.enc_layers, "encoder"),
+                      ("dec", local.dec_layers, "decoder")]
+            originals["cross_kv"] = ed.cross_kv
+
+            def cross_kv(m, enc_out, rt=LOCAL):
+                # the single-device cross K/V of the sharded encoder's
+                # output, kept in the prompt's lane
+                one = originals["cross_kv"](full, enc_out)
+                for k, t in one.items():
+                    if k not in fcross:
+                        fcross[k] = t.new_zeros((t.shape[0], n)
+                                                + t.shape[2:])
+                    fcross[k][:, state["rows"]] = t
+                return originals["cross_kv"](m, enc_out, rt)
+
+            ed.cross_kv = cross_kv
+        else:
+            stacks = [("dec-only", local.layers, None)]
+        for stack, layers, kind in stacks:
+            for i, layer in enumerate(layers):
+                hooks.append(layer.register_forward_hook(
+                    hook(stack, i, kind or layer.kind)))
+    try:
+        check_tokens, _, _ = run(cache, n_check, check_steps, state)
+    finally:
+        for h in hooks:
+            h.remove()
+        if "cross_kv" in originals:
+            ed.cross_kv = originals["cross_kv"]
+    del cache, local, full
+    torch.cuda.empty_cache()
+    return {"counts": counts, "plain_on_cuda": plain_on_cuda,
+            "tokens": tokens.cpu().tolist(),
+            "check_tokens": check_tokens.cpu().tolist(),
+            "decode_ms": ms, "coll_ms": coll, "wall_s": wall,
+            "tally": tally, "peak_gib": peak, "stats": stats, "lens": lens,
+            "max_seq": max_seq, "layout": str(layout)}
+
+
+def mshard_family_rank(seed: int) -> dict:
+    """One rank of (f): the MSHARD_FAMILIES models in turn, each freed
+    before the next."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_test_mesh(*MSHARD_FAMILY_MESH).bind()
+    out = {}
+    for arch, (count, lo, hi), steps, n_check, check_steps in \
+            MSHARD_FAMILIES:
+        t = time.perf_counter()
+        inputs = mshard_family_inputs(torch, np, seed, get_config(arch),
+                                      count, lo, hi)
+        out[arch] = mshard_family_one(mesh, arch, inputs, steps, n_check,
+                                      check_steps, seed)
+        out[arch]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def mshard_family_launches(cfg, steps: int, prompts: int) -> dict:
+    """The attention kernels' launches a rank of (f) must count on its
+    main path, by route: flash on the route ``route()`` names for the
+    model's bf16 heads, paged split (head-sharded KV) or partial
+    (sequence-sharded)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    route = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention").route
+    heads_split = cfg.num_kv_heads % MSHARD_FAMILY_MESH[1] == 0
+    if cfg.is_encoder_decoder:
+        L = cfg.num_layers
+        flash = prompts * (cfg.encoder_layers + 2 * L) + steps * L
+        paged = steps * L
+    else:
+        n_attn = sum(k in tf.ATTN_KINDS for k in tf.layer_kinds(cfg))
+        flash, paged = prompts * n_attn, steps * n_attn
+    fr = route(torch.bfloat16, cfg.head_dim)
+    return {"flash": {r: flash if r == fr else 0
+                      for r in ("wgmma", "scalar")},
+            "paged": {r: paged if r == ("split" if heads_split
+                                        else "partial") else 0
+                      for r in ("split", "partial", "serial")}}
+
+
+def mshard_family_check(np, res: list, card: str) -> dict:
+    """(f)'s checks and lines; the main paths' launches for the kernel
+    rows."""
+    from repro_torch.configs import get_config
+    launches = {}
+    for arch, (count, _, _), steps, n_check, check_steps in MSHARD_FAMILIES:
+        cfg = get_config(arch)
+        want = mshard_family_launches(cfg, steps, count)
+        for r, x in enumerate(res):
+            got = x[arch]
+            check(got["counts"] == want,
+                  f"model_shard (f): {arch} rank {r} launches "
+                  f"{got['counts']}, want {want}")
+            check(not any(got["plain_on_cuda"].values()),
+                  f"model_shard (f): {arch} plain versions on CUDA tensors "
+                  f"{got['plain_on_cuda']}")
+            check(got["tokens"] == res[0][arch]["tokens"]
+                  and got["check_tokens"] == res[0][arch]["check_tokens"],
+                  f"model_shard (f): {arch} rank {r}'s greedy tokens differ "
+                  "from rank 0's")
+        x = res[0][arch]
+        # every layer at each prefill, the decoder's at each step too
+        calls = cfg.num_layers * (n_check + check_steps) \
+            + cfg.encoder_layers * n_check
+        st = x["stats"]
+        worst = {k: round(max(v), 4) for k, v in st.items()}
+        check(sum(len(v) for v in st.values()) == calls
+              and all(max(v) <= 1 for v in st.values()),
+              f"model_shard (f): {arch} float32 layers against the "
+              f"single-device ones: largest {worst} of {MSHARD_F32_TOL}"
+              f"·max|ref − in| over {[len(v) for v in st.values()]} calls "
+              f"(want {calls})")
+        for k in ("flash", "paged"):
+            for route, c in want[k].items():
+                if c:
+                    key = f"{arch} {k} {route}"
+                    launches[key] = sum(y[arch]["counts"][k][route]
+                                        for y in res)
+        ms = float(np.median(x["decode_ms"]))
+        share = sum(x["coll_ms"]) / sum(x["decode_ms"])
+        enc = (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers
+               else "")
+        frames = (f" over {WHISPER_FRAMES} frames each"
+                  if cfg.is_encoder_decoder else "")
+        print(f"model_shard (f): {arch} ({cfg.num_layers} layers{enc}"
+              f", d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+              f"bf16) on {MSHARD_FAMILY_MESH[0]}x{MSHARD_FAMILY_MESH[1]} "
+              f"ranks sharing the card, {x['layout']}; {count} prompts of "
+              f"{x['lens']} tokens{frames} prefilled one by one, then "
+              f"{steps} greedy steps of all lanes (cache {x['max_seq']} "
+              f"positions): decode step "
+              f"{ms:.2f} ms (median, host clock, rank 0), "
+              f"{100 * share:.1f} % of it in the host-staged collectives "
+              f"({x['tally']['counts']}); main path {x['wall_s']:.2f} s; "
+              f"launches a rank {x['counts']}, the same greedy tokens on "
+              f"every rank, no plain call on CUDA tensors; in float32, each "
+              f"layer's sharded output against rank 0's single-device layer "
+              f"on the same input over {calls} layer calls ({n_check} "
+              f"prefills, {check_steps} decode steps): largest {worst} of "
+              f"{MSHARD_F32_TOL}·max|ref − in|; peak memory a rank (main "
+              f"path) {[round(y[arch]['peak_gib'], 2) for y in res]} GiB; "
+              f"{x['seconds']:.1f} s on rank 0; card {card}")
+    return launches
+
+
+def mshard_family_rows(torch, seed: int, launches: dict) -> list:
+    """The kernel JSON's rows at (f)'s new shapes, each against its plain
+    version within TOL_FAMILIES and timed beside SDPA: flash at
+    recurrentgemma-2b's 5 local query heads over its one KV head (dh
+    256, window 2,048) on one rank of 1×2 at the main path's longest
+    prompt, and the paged kernel's partial route over rank 0's block of
+    the main path's sequence-sharded cache at dh 256 and G 10 (the
+    query heads gathered over tp) at its last step's contexts, the
+    window straddling the two ranks' blocks."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, \
+        reference_attention
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_partial, reference_paged_attention_partial)
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    bf16, rows = torch.bfloat16, []
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_S
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                           else "bytes")
+
+    # flash: the longest prompt's prefill on one rank of recurrentgemma
+    # at tp 2 (the main path's prompts: mshard_family_inputs)
+    H, Hkv, dh, S, W = 5, 1, 256, 2447, 2048
+    q, k, v = (torch.randn(1, h, S, dh, device="cuda", generator=g).to(bf16)
+               for h in (H, Hkv, Hkv))
+    out = flash_attention(q, k, v, causal=True, window=W)
+    ratio = limit_ratio(out, reference_attention(q, k, v, causal=True,
+                                                 window=W), *TOL_FAMILIES)
+    check(ratio <= 1, f"model_shard (f): flash at dh 256, 5/1 heads, window "
+          f"{W} at {ratio:.3g} of TOL_FAMILIES")
+    i = torch.arange(S, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+    pairs = int(mask.sum())
+    b_ms, b_by = bound(4.0 * H * dh * pairs, 2.0 * (2 * H + 2 * Hkv) * S * dh)
+    rows.append({
+        "name": "flash_prefill_rg_tp2", "route": "cuda", "source": FLASH_SRC,
+        "replaces": FLASH_TPU,
+        "launches": launches["recurrentgemma-2b flash scalar"],
+        "max_abs_err": float((out.float() - reference_attention(
+            q, k, v, causal=True, window=W).float()).abs().max()),
+        "ms": timer.ms(lambda: flash_attention(q, k, v, causal=True,
+                                               window=W)),
+        "plain_ms": mshard_plain_ms(timer, "flash_prefill_rg_tp2",
+                                    lambda: reference_attention(
+                                        q, k, v, causal=True, window=W)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)),
+        "shape": f"B=1 H={H} H_kv={Hkv} S={S} dh={dh} window={W} bf16 "
+                 "causal, scalar route (one rank of recurrentgemma-2b at "
+                 "tp 2)"})
+
+    # paged partial: rank 0's block (positions 0-1231 of 2,464) of the 4
+    # lanes at the main path's last step (prompts of 2,117-2,447 tokens,
+    # 8 more), all 10 query heads over 1 KV head
+    H, Hkv, L, T = 10, 1, 1232, 16
+    gctx = [2125, 2455, 2319, 2429]
+    local = [min(c, L) for c in gctx]
+    qd, kp, vp, bt, _ = paged_inputs(torch, g, 4, H, Hkv, dh, [L] * 4, bf16,
+                                     T=T, mp=L // T)
+    cl = torch.tensor(gctx, dtype=torch.int32, device="cuda")
+    errs = []
+    for off in (0, L):
+        koff = torch.full((4,), off, dtype=torch.int32, device="cuda")
+        o_k, l_k = paged_attention_partial(qd, kp, vp, bt, cl, koff,
+                                           window=W)
+        o_r, l_r = reference_paged_attention_partial(qd, kp, vp, bt, cl,
+                                                     koff, window=W)
+        live = torch.isfinite(l_r)
+        r1 = limit_ratio(o_k, o_r, *TOL_FAMILIES)
+        r2 = limit_ratio(torch.where(live, l_k, 0.0),
+                         torch.where(live, l_r, 0.0), *TOL_FAMILIES)
+        check(r1 <= 1 and r2 <= 1 and bool(
+            (torch.isfinite(l_k) == live).all()),
+              f"model_shard (f): partial route at dh 256 / G 10 / window "
+              f"{W}, block offset {off}: o {r1:.3g}, lse {r2:.3g} of "
+              "TOL_FAMILIES")
+        errs.append(float((o_k.float() - o_r.float()).abs().max()))
+    koff = torch.zeros(4, dtype=torch.int32, device="cuda")
+    n_live = sum(min(c, L) - max(c - W, 0) for c in gctx)
+    b_ms, b_by = bound(4.0 * H * dh * n_live,
+                       2.0 * 4 * H * dh + 2.0 * 2 * n_live * Hkv * dh
+                       + 4.0 * 4 * H * (dh + 1) + 4.0 * (bt.numel() + 8))
+    pages = bt.long()
+    dk = kp[pages].reshape(4, L, Hkv, dh).transpose(1, 2)
+    dv = vp[pages].reshape(4, L, Hkv, dh).transpose(1, 2)
+    j = torch.arange(L, device="cuda")[None, :]
+    c = cl[:, None].long()
+    lmask = (j < c) & (j >= c - W)
+    rows.append({
+        "name": "paged_partial_rg", "route": "cuda", "source": PAGED_SRC,
+        "replaces": PAGED_TPU,
+        "launches": launches["recurrentgemma-2b paged partial"],
+        "max_abs_err": max(errs),
+        "ms": timer.ms(lambda: paged_attention_partial(
+            qd, kp, vp, bt, cl, koff, window=W)),
+        "plain_ms": mshard_plain_ms(
+            timer, "paged_partial_rg",
+            lambda: reference_paged_attention_partial(
+                qd, kp, vp, bt, cl, koff, window=W)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], dk, dv, attn_mask=lmask[:, None, None, :],
+            enable_gqa=True)),
+        "shape": f"B=4 H={H} H_kv={Hkv} dh={dh} T={T} window={W}, rank 0's "
+                 f"block of {L} positions of 2,464 (recurrentgemma-2b on "
+                 f"1x2, the query heads gathered), global ctx={gctx} "
+                 f"(local {local}) bf16; rank 1's block checked too"})
     return rows
 
 
@@ -4308,7 +4790,18 @@ def phase_model_shard(torch, np, seed: int, card: str) -> list:
           f"collectives {art['collectives']['bytes_by_kind']} B; roofline "
           f"under the H100 SXM data-sheet peaks (989e12 FLOP/s bf16, 3.35e12 "
           f"B/s HBM, 450e9 B/s NVLink each way): {row.row()}")
+
+    # (f) the RG-LRU, xLSTM and encoder-decoder families on 1×2
+    t = time.perf_counter()
+    res = sp.launch_ranks(mshard_family_rank,
+                          MSHARD_FAMILY_MESH[0] * MSHARD_FAMILY_MESH[1],
+                          seed, timeout=MSHARD_TIMEOUT_S)
+    family_launches = mshard_family_check(np, res, card)
     rows = mshard_kernel_rows(torch, seed, launches)
+    rows += mshard_family_rows(torch, seed, family_launches)
+    PHASE_SECONDS["model_shard (f)"] = time.perf_counter() - t
+    print(f"model_shard (f): launch and kernel rows "
+          f"{PHASE_SECONDS['model_shard (f)']:.1f} s")
     print(f"model_shard: phase {time.perf_counter() - t_phase:.1f} s")
     return rows
 
@@ -4486,7 +4979,8 @@ def main(argv=None) -> int:
         now = time.perf_counter()
         print(f"seconds: {now - t0:.1f} in all, of them families "
               f"{t_train - t_families:.1f}, train {t_shard - t_train:.1f}, "
-              f"model_shard {now - t_shard:.1f}")
+              f"model_shard {now - t_shard:.1f} (its (f) "
+              f"{PHASE_SECONDS['model_shard (f)']:.1f})")
     except Exception:                     # noqa: BLE001 — report and fail
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)

@@ -328,17 +328,28 @@ class KVLayout:
     H_kv, dh) cache: ``batch`` the axes over which sequences split,
     ``seq`` those over which positions split (rank i of them holds
     positions [i·S/n, (i+1)·S/n) of each of its sequences), ``heads``
-    whether K/V heads split over tp.  ``seq_len`` is the global S."""
+    whether K/V heads split over tp.  ``seq_len`` is the global S.
+
+    The per-sequence state splits its rows over ``batch`` too.
+    ``state_tp``: the RG-LRU state's channels (h (B, dr), conv (B, W−1,
+    dr)) split over tp, as ``cache_pspecs`` puts them; the xLSTM states
+    are whole on every tp rank.  The encoder-decoder's cross K/V splits
+    its heads over tp with ``heads``, and is otherwise whole on every tp
+    rank (where the reference's spec splits its positions: the flash
+    kernel returns no log-sum-exp to merge such blocks with)."""
 
     batch: tuple[str, ...]
     seq: tuple[str, ...]
     heads: bool
     seq_len: int
+    state_tp: bool = False
 
     @classmethod
-    def from_spec(cls, spec: Spec, seq_len: int) -> "KVLayout":
+    def from_spec(cls, spec: Spec, seq_len: int,
+                  state_tp: bool = False) -> "KVLayout":
         return cls(batch=axes_of(spec[0]), seq=axes_of(spec[1]),
-                   heads=spec[2] is not None, seq_len=seq_len)
+                   heads=spec[2] is not None, seq_len=seq_len,
+                   state_tp=state_tp)
 
     def block_len(self, mesh: ModelMesh) -> int:
         """Positions a rank holds of each sequence."""
@@ -351,10 +362,15 @@ class KVLayout:
 
 def kv_layout(plan: ShardingPlan, batch: int, max_seq: int) -> KVLayout:
     """The layout of a (batch, max_seq) cache under ``plan``: the spec of
-    a global attention layer's K (local layers share its pages)."""
-    shape = (batch, max_seq, plan.cfg.num_kv_heads, plan.cfg.head_dim)
-    spec = cache_pspecs(plan, {"k": shape})["k"]
-    return KVLayout.from_spec(spec, max_seq)
+    a global attention layer's K (local layers share its pages) and of
+    an RG-LRU state's h."""
+    cfg = plan.cfg
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    specs = cache_pspecs(plan, {"k": shape,
+                                "h": (batch, cfg.rnn_width or cfg.d_model)})
+    return KVLayout.from_spec(specs["k"], max_seq,
+                              state_tp="rglru" in cfg.pattern
+                              and specs["h"][1] is not None)
 
 
 # ============================ a rank's weights ===============================
@@ -362,8 +378,9 @@ def compute_spec(plan: ShardingPlan, path: tuple, spec: Spec) -> Spec:
     """The block of a leaf this rank computes with, from its stored spec:
     the dp entries dropped (FSDP dims are gathered before use) except on
     the experts (expert parallelism keeps them), and the tp entries the
-    model code does not split — ``vision_proj``'s columns and ``wo``'s
-    output dim (both gathered)."""
+    model code does not split — ``vision_proj``'s columns, ``wo``'s
+    output dim and the sLSTM FFN's ``w_ff_up`` columns (its two halves
+    would straddle the ranks' blocks; all gathered)."""
     name = path[-1]
     parent = path[-2] if len(path) > 1 else ""
     dp = set(plan.dp_axes)
@@ -372,7 +389,7 @@ def compute_spec(plan: ShardingPlan, path: tuple, spec: Spec) -> Spec:
         axes = set(axes_of(e))
         if axes & dp and parent != "moe":
             e = None
-        elif axes and (name == "vision_proj"
+        elif axes and (name in ("vision_proj", "w_ff_up")
                        or (name == "wo" and dim == len(spec) - 1)):
             e = None
         out.append(e)
@@ -389,9 +406,7 @@ def shard_module(model, plan: ShardingPlan):
     """This rank's module: each parameter of the whole ``model`` cut to
     its :func:`compute_spec` block (copies; ``model`` is left as it
     is)."""
-    from repro_torch.models.transformer import check_shardable, \
-        module_from_tree, param_tree
-    check_shardable(model.cfg)
+    from repro_torch.models.registry import module_from_tree, param_tree
     tree = param_tree(model)
 
     def one(leaf, spec):
@@ -431,7 +446,7 @@ def _pairs(leaf, spec):
 def shard_params(model, plan: ShardingPlan) -> ShardedParams:
     """The :class:`ShardedParams` of this rank from the whole ``model``
     (which is left as it is)."""
-    from repro_torch.models.transformer import param_tree
+    from repro_torch.models.registry import param_tree
     tree = param_tree(model)
     specs = param_pspecs(plan, tree)
 
@@ -458,7 +473,7 @@ def _gather_dims(mesh: ModelMesh, t: torch.Tensor, spec: Spec,
 @torch.no_grad()
 def gather_params(sp: ShardedParams) -> None:
     """Rewrite the compute module's parameters from the shards."""
-    from repro_torch.models.transformer import param_tree
+    from repro_torch.models.registry import param_tree
     mesh = sp.plan.mesh
     for (_, leaf), (_, dst), (_, spec), (_, keep) in zip(
             *(leaves_with_paths(x) for x in (

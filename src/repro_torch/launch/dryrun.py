@@ -20,18 +20,19 @@ artifact holds the reference's fields, measured so:
   paged layout (serve), the batch; each part also on its own, and the
   cache's bytes in the reference's dense layout beside the paged ones
   (they differ where the reference keeps a ``local`` layer's window as
-  a ring and the port keeps every page);
+  a ring and the port keeps every page, and for the encoder-decoder
+  where H_kv does not split over tp: the reference's spec splits the
+  cross K/V's positions over tp, the port keeps it whole on every rank,
+  ``cross_bytes`` of ``cache_bytes``);
 * ``collectives`` — the tally's bytes and counts by kind: the result
   bytes of each collective on one device, the quantity the reference
   reads from the post-SPMD HLO (``collective_bytes_from_hlo``, an XLA
   artefact with no counterpart here).
 
-Sharded execution covers the attention families; an RG-LRU, xLSTM or
-encoder-decoder cell reports its spec bytes (params, optimizer state,
-dense cache, batch) and ``status: "skip"`` (ROADMAP slice 11).
-``--opt`` takes the reference's bundle names and refuses each: they set
-XLA-only knobs (see ``models.runtime``).  The whole grid (10 archs × 4
-shapes × 2 meshes) takes a few minutes on one CPU core.
+Every family runs sharded, so every applicable cell reports ``status:
+"ok"``.  ``--opt`` takes the reference's bundle names and refuses each:
+they set XLA-only knobs (see ``models.runtime``).  The whole grid (10
+archs × 4 shapes × 2 meshes) takes a few minutes on one CPU core.
 """
 from __future__ import annotations
 
@@ -63,7 +64,6 @@ from repro_torch.distributed.sharding import (
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model, param_tree
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeSpec
-from repro_torch.models.transformer import check_shardable
 from repro_torch.training.loss import lm_loss_sharded
 from repro_torch.training.optimizer import OptimizerConfig, adamw_init, \
     adamw_update
@@ -185,7 +185,6 @@ def build_step(model, plan, shape: ShapeSpec, specs: dict):
     full = model.init(torch.Generator().manual_seed(0), "meta")
     sizes = spec_sizes(full, plan, shape, specs)
     batch = _batch_blocks(plan, specs)
-    check_shardable(cfg)
 
     if train:
         sp = shard_params(full, plan)
@@ -221,8 +220,18 @@ def build_step(model, plan, shape: ShapeSpec, specs: dict):
     L = layout.block_len(mesh)
     T = math.gcd(PAGE_TOKENS, L)
     mp = L // T
-    cache = model.init_cache(B * mp, T, rt, "meta", layout=layout)
-    sizes["cache"] = sum(_nbytes(t) for t in cache.k + cache.v)
+    cache = model.init_cache(B * mp, T, rt, "meta", lanes=B, layout=layout)
+    if cfg.is_encoder_decoder:
+        # the cross K/V over S_enc frames (decode: max_seq, as the
+        # reference sizes it), whole where H_kv does not split over tp
+        heads = cfg.num_kv_heads // (plan.tp_size if layout.heads else 1)
+        cache.alloc_cross(torch.empty(
+            (cfg.num_layers, B, S, heads, cfg.head_dim),
+            dtype=full.embed.dtype, device="meta"))
+        sizes["cross"] = sum(_nbytes(t) for t in cache.cross.values())
+    sizes["cache"] = sum(_nbytes(t) for t in cache.k + cache.v) + sum(
+        _nbytes(t) for st in getattr(cache, "state", []) for t in st.values()
+    ) + sizes.get("cross", 0)
     tables = torch.arange(B * mp, dtype=torch.int32,
                           device="meta").reshape(B, mp)
     if shape.kind == "prefill":
@@ -257,39 +266,29 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         mesh.reset_tally()
         t0 = time.perf_counter()
         model = build_model(cfg)
-        try:
-            step, sizes = build_step(model, plan, shape,
-                                     input_specs(cfg, shape))
-        except NotImplementedError as e:
-            ok, why = False, f"SKIP: {e}"
-            sizes = spec_sizes(model.init(torch.Generator(), "meta"), plan,
-                               shape, input_specs(cfg, shape))
-            result.update({"param_bytes": sizes["params"],
-                           "opt_bytes": sizes.get("opt", 0),
-                           "batch_bytes": sizes["batch"],
-                           "cache_bytes_dense": sizes.get("cache_dense", 0)})
-        else:
-            with FlopCounterMode(display=False) as counter:
-                step()
-            tally = mesh.tally
-            result.update({
-                "status": "ok",
-                "run_s": round(time.perf_counter() - t0, 2),
-                "flops": float(counter.get_total_flops()),
-                "param_bytes": sizes["params"],
-                "opt_bytes": sizes.get("opt", 0),
-                "batch_bytes": sizes["batch"],
-                "cache_bytes": sizes.get("cache", 0),
-                "cache_bytes_dense": sizes.get("cache_dense", 0),
-                "argument_size_in_bytes": (
-                    sizes["params"] + sizes.get("opt", 0)
-                    + sizes.get("cache", 0) + sizes["batch"]),
-                "collectives": {
-                    "total_bytes": sum(tally["bytes_by_kind"].values()),
-                    "bytes_by_kind": dict(tally["bytes_by_kind"]),
-                    "counts": dict(tally["counts"])},
-            })
-    if not ok:
+        step, sizes = build_step(model, plan, shape, input_specs(cfg, shape))
+        with FlopCounterMode(display=False) as counter:
+            step()
+        tally = mesh.tally
+        result.update({
+            "status": "ok",
+            "run_s": round(time.perf_counter() - t0, 2),
+            "flops": float(counter.get_total_flops()),
+            "param_bytes": sizes["params"],
+            "opt_bytes": sizes.get("opt", 0),
+            "batch_bytes": sizes["batch"],
+            "cache_bytes": sizes.get("cache", 0),
+            "cache_bytes_dense": sizes.get("cache_dense", 0),
+            "cross_bytes": sizes.get("cross", 0),
+            "argument_size_in_bytes": (
+                sizes["params"] + sizes.get("opt", 0)
+                + sizes.get("cache", 0) + sizes["batch"]),
+            "collectives": {
+                "total_bytes": sum(tally["bytes_by_kind"].values()),
+                "bytes_by_kind": dict(tally["bytes_by_kind"]),
+                "counts": dict(tally["counts"])},
+        })
+    else:
         result.update({"status": "skip", "reason": why})
     if verbose and result["status"] == "ok":
         print(f"[{arch} × {shape_name} × {mesh_name}] {result['run_s']} s  "

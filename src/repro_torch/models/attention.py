@@ -89,13 +89,12 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, -1)).view(B, S, *w.shape[1:])
 
 
-def _project(params, x: torch.Tensor, positions: torch.Tensor, cfg,
-             rt=LOCAL):
-    """q (B,S,H,dh), k/v (B,S,H_kv,dh) with RoPE at ``positions`` — under
-    a mesh, the heads this tp rank holds: its block where a projection's
-    heads split over tp, all of them where its input dim d does (the
-    partial products summed over tp)."""
-    names = ("wq", "wk", "wv")
+def _qkv(params, x: torch.Tensor, rt=LOCAL,
+         names=("wq", "wk", "wv")) -> dict:
+    """x (B,S,d) through the projections ``names`` → {name: (B,S,n,dh)}
+    — under a mesh, the heads this tp rank holds: its block where a
+    projection's heads split over tp, all of them where its input dim d
+    does (the partial products summed over tp)."""
     out = {}
     if rt.sharded:
         x = rt.replicate_tp(x)
@@ -115,6 +114,14 @@ def _project(params, x: torch.Tensor, positions: torch.Tensor, cfg,
     for n in names:
         if n not in out:
             out[n] = _heads(x, params[n])
+    return out
+
+
+def _project(params, x: torch.Tensor, positions: torch.Tensor, cfg,
+             rt=LOCAL):
+    """q (B,S,H,dh), k/v (B,S,H_kv,dh) with RoPE at ``positions`` (this
+    tp rank's heads, as :func:`_qkv`)."""
+    out = _qkv(params, x, rt)
     q = apply_rope(out["wq"], positions, cfg.rope_theta)
     k = apply_rope(out["wk"], positions, cfg.rope_theta)
     return q, k, out["wv"]
@@ -304,41 +311,42 @@ def _decode_sharded(q, k, v, cfg, kind, k_pages, v_pages, block_tables,
 
 
 def encoder_attention_block(params, x: torch.Tensor, cfg,
-                            train: bool = False) -> torch.Tensor:
+                            train: bool = False, rt=LOCAL) -> torch.Tensor:
     """Bidirectional self-attention over a whole sequence (the whisper
     encoder): no RoPE, no mask; the flash kernel, or :func:`attend`
     with ``train``."""
-    q, k, v = (_heads(x, params[w]) for w in ("wq", "wk", "wv"))
+    p = _qkv(params, x, rt)
+    q = p["wq"]
+    k, v = _kv_for(q, p["wk"], p["wv"], cfg, rt)
+    return _out(params, _unmasked(q, k, v, cfg, train), cfg, rt)
+
+
+def _unmasked(q, k, v, cfg, train: bool) -> torch.Tensor:
+    """Attention of q over every key of k/v: :func:`attend` with
+    ``train``, else the flash kernel with ``causal=False``."""
     if train:
-        groups = cfg.num_heads // cfg.num_kv_heads
-        o = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups), None,
-                   cfg.attn_logit_softcap)
-    else:
-        o = flash_attention_bshd(q, k, v, causal=False,
-                                 softcap=cfg.attn_logit_softcap)
-    return _out(params, o)
+        groups = q.shape[2] // k.shape[2]
+        return attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups), None,
+                      cfg.attn_logit_softcap)
+    return flash_attention_bshd(q, k, v, causal=False,
+                                softcap=cfg.attn_logit_softcap)
 
 
-def encoder_kv(params, enc_out: torch.Tensor) -> dict[str, torch.Tensor]:
+def encoder_kv(params, enc_out: torch.Tensor,
+               rt=LOCAL) -> dict[str, torch.Tensor]:
     """A decoder layer's cross-attention K and V over the encoder's
-    output: (B, S_enc, H_kv, dh) each."""
-    return {"k": _heads(enc_out, params["wk"]),
-            "v": _heads(enc_out, params["wv"])}
+    output: (B, S_enc, H_kv, dh) each (this tp rank's heads where they
+    split, all of them where the projections' d does)."""
+    p = _qkv(params, enc_out, rt, ("wk", "wv"))
+    return {"k": p["wk"], "v": p["wv"]}
 
 
 def cross_attention_block(params, x: torch.Tensor, enc_kv: dict, cfg,
-                          train: bool = False) -> torch.Tensor:
+                          train: bool = False, rt=LOCAL) -> torch.Tensor:
     """Decoder cross-attention: x (B, Sq, d) — the prompt at prefill,
     one token at decode, the whole sequence in training — over the
     encoder's K/V, every key visible; the flash kernel, or
     :func:`attend` with ``train``."""
-    q = _heads(x, params["wq"])
-    if train:
-        groups = cfg.num_heads // cfg.num_kv_heads
-        o = attend(q, _repeat_kv(enc_kv["k"], groups),
-                   _repeat_kv(enc_kv["v"], groups), None,
-                   cfg.attn_logit_softcap)
-    else:
-        o = flash_attention_bshd(q, enc_kv["k"], enc_kv["v"], causal=False,
-                                 softcap=cfg.attn_logit_softcap)
-    return _out(params, o)
+    q = _qkv(params, x, rt, ("wq",))["wq"]
+    k, v = _kv_for(q, enc_kv["k"], enc_kv["v"], cfg, rt)
+    return _out(params, _unmasked(q, k, v, cfg, train), cfg, rt)

@@ -26,6 +26,18 @@ neither package's ``TrainLoop`` can train this model (fault C11).
 The serving engine takes no encoder-decoder model: the reference's
 engine passes no frames to prefill (ROADMAP fault C10), so whisper runs
 through these entry points only.
+
+Every entry point takes ``rt``.  Under a mesh-ful runtime the module
+holds this rank's compute view (``distributed.sharding.shard_module``)
+and each stack runs as the decoder-only trunk does: the vocab-sharded
+table and logits, the encoder's, self- and cross-attention's
+projections column- and row-parallel by the attention rules, the MLPs
+over d_ff, the decoder's pages as the cache's ``KVLayout`` says.  The
+cross K/V holds this rank's H_kv/tp heads where the heads split over
+tp; where they do not, it is whole on every rank (the reference's
+``cache_pspecs`` would split its positions over tp, but the flash
+kernel returns no log-sum-exp to merge per-rank blocks of encoder keys
+with).
 """
 from __future__ import annotations
 
@@ -39,17 +51,15 @@ from repro_torch.models import attention as attn
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     dtype_of,
-    embed,
     embed_init,
     init_mlp,
-    mlp,
     rmsnorm,
     sinusoidal_positions,
-    unembed,
 )
 from repro_torch.models.runtime import LOCAL, Runtime, check_remat
-from repro_torch.models.transformer import _param, _params, _rows, \
-    layer_tree, stack_layers, tensors_from_numpy
+from repro_torch.models.transformer import _check_layout, _logits, _param, \
+    _params, _rows, dense_mlp, embed_inputs, layer_of, layer_tree, \
+    stack_layers, tensors_from_numpy
 
 
 class EncoderLayer(nn.Module):
@@ -61,10 +71,10 @@ class EncoderLayer(nn.Module):
         self.mlp = _params(weights["mlp"])
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig,
-                train: bool = False) -> torch.Tensor:
-        x = x + attn.encoder_attention_block(self.attn,
-                                             rmsnorm(self.ln1, x), cfg, train)
-        return x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.mlp_kind)
+                train: bool = False, rt: Runtime = LOCAL) -> torch.Tensor:
+        x = x + attn.encoder_attention_block(
+            self.attn, rmsnorm(self.ln1, x), cfg, train, rt)
+        return x + dense_mlp(self.mlp, rmsnorm(self.ln2, x), cfg, rt)
 
 
 class DecoderLayer(nn.Module):
@@ -78,7 +88,8 @@ class DecoderLayer(nn.Module):
         self.mlp = _params(weights["mlp"])
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig, attend,
-                enc_kv: dict, train: bool = False) -> torch.Tensor:
+                enc_kv: dict, train: bool = False,
+                rt: Runtime = LOCAL) -> torch.Tensor:
         """``attend(attn_params, y)`` is the prefill, decode or train
         self-attention (bound to this layer's KV pages where it has
         them); ``enc_kv`` the layer's cross K/V of the batch's
@@ -86,8 +97,8 @@ class DecoderLayer(nn.Module):
         x = x + attend(self.self_attn, rmsnorm(self.ln1, x))
         x = x + attn.cross_attention_block(self.cross_attn,
                                            rmsnorm(self.ln_x, x), enc_kv,
-                                           cfg, train)
-        return x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.mlp_kind)
+                                           cfg, train, rt)
+        return x + dense_mlp(self.mlp, rmsnorm(self.ln2, x), cfg, rt)
 
 
 class EncoderDecoder(nn.Module):
@@ -153,6 +164,19 @@ def params_from_jax(cfg: ArchConfig, np_params: dict,
         "final_norm": tensors_from_numpy(np_params["final_norm"], device)})
 
 
+def module_from_tree(cfg: ArchConfig, tree: dict) -> EncoderDecoder:
+    """The inverse of :func:`param_tree`: an :class:`EncoderDecoder`
+    whose parameters are the tree's tensors (shared, not copied)."""
+    return EncoderDecoder(cfg, {
+        "embed": tree["embed"]["table"],
+        "enc_layers": [layer_of(tree["enc_layers"], i)
+                       for i in range(cfg.encoder_layers)],
+        "enc_norm": tree["enc_norm"]["scale"],
+        "dec_layers": [layer_of(tree["dec_layers"], i)
+                       for i in range(cfg.num_layers)],
+        "final_norm": tree["final_norm"]["scale"]})
+
+
 def param_tree(model: EncoderDecoder) -> dict:
     """The model's parameters as the reference's pytree (encoder and
     decoder layers as groups: the reference stacks them), a view of the
@@ -178,32 +202,39 @@ class EncDecCache:
     v: list[torch.Tensor]
     lanes: int
     cross: Optional[dict[str, torch.Tensor]] = None
+    #: how this rank's pages hold a sharded cache (None: unsharded)
+    layout: Optional[object] = None
+
+    def alloc_cross(self, like: torch.Tensor) -> None:
+        """The cross K/V rows of ``lanes`` sequences, shaped as the
+        (L, B, S_enc, H_kv, dh) ``like`` (a rank's heads under a
+        head-split layout)."""
+        self.cross = {n: like.new_zeros((like.shape[0], self.lanes)
+                                        + like.shape[2:]) for n in ("k", "v")}
 
 
 def init_cache(cfg: ArchConfig, total_pages: int, page_tokens: int,
                rt: Runtime = LOCAL, device="cuda",
                lanes: int = 1, layout=None) -> EncDecCache:
-    if layout is not None:
-        _unsharded(cfg)
-    shape = (total_pages, page_tokens, cfg.num_kv_heads, cfg.head_dim)
+    """The decoder's page pools (this rank's H_kv/tp heads under a
+    layout that splits heads); the cross K/V comes with the first
+    prefill."""
+    heads = cfg.num_kv_heads
+    if layout is not None and layout.heads:
+        heads //= rt.tp_size
+    shape = (total_pages, page_tokens, heads, cfg.head_dim)
     dt = rt.cache_dtype()
     return EncDecCache(
         k=[torch.zeros(shape, dtype=dt, device=device)
            for _ in range(cfg.num_layers)],
         v=[torch.zeros(shape, dtype=dt, device=device)
            for _ in range(cfg.num_layers)],
-        lanes=lanes)
-
-
-def _unsharded(cfg: ArchConfig) -> None:
-    raise NotImplementedError(
-        f"{cfg.name}: sharded execution of the encoder-decoder is ROADMAP "
-        "slice 11 (the sharding rules cover it)")
+        lanes=lanes, layout=layout)
 
 
 # ============================ entry points =======================================
 def encode(model: EncoderDecoder, frames: torch.Tensor,
-           train: bool = False) -> torch.Tensor:
+           train: bool = False, rt: Runtime = LOCAL) -> torch.Tensor:
     """frames: precomputed (B, S_enc, d) stub-frontend embeddings →
     the encoder's output (B, S_enc, d); dense attention with
     ``train``."""
@@ -213,108 +244,105 @@ def encode(model: EncoderDecoder, frames: torch.Tensor,
     x = x + sinusoidal_positions(torch.arange(S, device=x.device),
                                  cfg.d_model).to(x.dtype)[None]
     for layer in model.enc_layers:
-        x = layer(x, cfg, train)
+        x = layer(x, cfg, train, rt)
     return rmsnorm(model.enc_norm, x)
 
 
-def cross_kv(model: EncoderDecoder,
-             enc_out: torch.Tensor) -> dict[str, torch.Tensor]:
+def cross_kv(model: EncoderDecoder, enc_out: torch.Tensor,
+             rt: Runtime = LOCAL) -> dict[str, torch.Tensor]:
     """Every decoder layer's cross K/V: ``{"k", "v"}: (L, B, S_enc,
-    H_kv, dh)``."""
-    per_layer = [attn.encoder_kv(layer.cross_attn, enc_out)
+    H_kv, dh)`` (a rank's heads where they split over tp)."""
+    per_layer = [attn.encoder_kv(layer.cross_attn, enc_out, rt)
                  for layer in model.dec_layers]
     return {n: torch.stack([kv[n] for kv in per_layer]) for n in ("k", "v")}
 
 
 def _decoder(model: EncoderDecoder, x: torch.Tensor, attend,
-             enc_kv: dict, train: bool = False) -> torch.Tensor:
+             enc_kv: dict, train: bool = False,
+             rt: Runtime = LOCAL) -> torch.Tensor:
     """The decoder stack; ``attend(l, p, y)`` is layer l's
     self-attention, ``enc_kv`` the (L, B, ...) cross K/V."""
     for l, layer in enumerate(model.dec_layers):
         x = layer(x, model.cfg, lambda p, y, l=l: attend(l, p, y),
-                  {n: t[l] for n, t in enc_kv.items()}, train)
+                  {n: t[l] for n, t in enc_kv.items()}, train, rt)
     return x
-
-
-def _logits(model: EncoderDecoder, x: torch.Tensor) -> torch.Tensor:
-    cfg = model.cfg
-    return unembed(model.embed, rmsnorm(model.final_norm, x),
-                   cfg.vocab_size, cap=cfg.final_logit_softcap)
 
 
 def forward_train(model: EncoderDecoder, tokens: torch.Tensor,
                   extra_embed: Optional[torch.Tensor] = None,
                   remat: str = "none", rt: Runtime = LOCAL) -> torch.Tensor:
     """Teacher-forced training: the frames ``extra_embed`` (B, S_enc, d)
-    encoded, then the decoder tokens (B, S) → (B, S, V_padded) logits,
-    under autograd.  ``remat`` is checked and, as in the reference
-    (whose encoder-decoder ignores ``Runtime.remat``), not applied.
-    There is no sharded form yet (``rt`` must be unsharded)."""
+    encoded, then the decoder tokens (B, S) → (B, S, V_padded) logits
+    (this rank's vocabulary block under a mesh), under autograd.
+    ``remat`` is checked and, as in the reference (whose
+    encoder-decoder ignores ``Runtime.remat``), not applied."""
     check_remat(remat)
     cfg = model.cfg
-    if rt.sharded:
-        _unsharded(cfg)
     if extra_embed is None:
         raise ValueError(f"{cfg.name}: forward_train needs the encoder's "
                          "frames, extra_embed (B, S_enc, d) (fault C11: the "
                          "synthetic data pipeline gives none)")
-    xkv = cross_kv(model, encode(model, extra_embed, train=True))
-    S = tokens.shape[1]
-    positions = torch.arange(S, device=tokens.device)
-    x = embed(model.embed, tokens)
+    xkv = cross_kv(model, encode(model, extra_embed, True, rt), rt)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed_inputs(model, tokens, rt=rt)
     x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)[None]
     x = _decoder(model, x, lambda l, p, y: attn.attention_block(
-        p, y, cfg, "global", positions), xkv, train=True)
-    return _logits(model, x)
+        p, y, cfg, "global", positions, rt), xkv, True, rt)
+    return _logits(model, x, rt)
 
 
 @torch.no_grad()
 def prefill(model: EncoderDecoder, tokens: torch.Tensor, cache: EncDecCache,
             block_tables: torch.Tensor, lanes: Optional[torch.Tensor] = None,
-            extra_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+            extra_embed: Optional[torch.Tensor] = None,
+            rt: Runtime = LOCAL) -> torch.Tensor:
     """Encode the frames ``extra_embed`` (B, S_enc, d), keep their cross
     K/V in rows ``lanes`` of the cache, and consume the decoder prompts
     (B, S), writing their self-attention K/V into the pages of
-    ``block_tables`` → (B, 1, V_padded) last-position logits."""
+    ``block_tables`` → (B, 1, V_padded) last-position logits (this
+    rank's vocabulary block under a mesh)."""
     cfg = model.cfg
+    _check_layout(cache, rt)
     if extra_embed is None:
         raise ValueError(f"{cfg.name}: prefill needs the encoder's frames, "
                          "extra_embed (B, S_enc, d)")
-    xkv = cross_kv(model, encode(model, extra_embed))
-    L, B, S_enc = xkv["k"].shape[:3]
+    xkv = cross_kv(model, encode(model, extra_embed, rt=rt), rt)
     if cache.cross is None:
-        cache.cross = {n: t.new_zeros((L, cache.lanes) + t.shape[2:])
-                       for n, t in xkv.items()}
-    if cache.cross["k"].shape[2] != S_enc:
-        raise ValueError(f"{cfg.name}: {S_enc} frames; this cache holds the "
-                         f"cross K/V of {cache.cross['k'].shape[2]}")
+        cache.alloc_cross(xkv["k"])
+    if cache.cross["k"].shape[2:] != xkv["k"].shape[2:]:
+        raise ValueError(f"{cfg.name}: cross K/V of {xkv['k'].shape[2:]} "
+                         f"(frames, heads, dh); this cache holds "
+                         f"{cache.cross['k'].shape[2:]}")
     rows = _rows(lanes, tokens)
     for n, t in xkv.items():
         cache.cross[n][:, rows] = t
-    S = tokens.shape[1]
-    positions = torch.arange(S, device=tokens.device)
-    x = embed(model.embed, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed_inputs(model, tokens, rt=rt)
     x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)[None]
     x = _decoder(model, x, lambda l, p, y: attn.prefill_attention(
-        p, y, cfg, "global", cache.k[l], cache.v[l], block_tables), xkv)
-    return _logits(model, x[:, -1:, :])
+        p, y, cfg, "global", cache.k[l], cache.v[l], block_tables, rt,
+        cache.layout), xkv, rt=rt)
+    return _logits(model, x[:, -1:, :], rt)
 
 
 @torch.no_grad()
 def decode_step(model: EncoderDecoder, tokens: torch.Tensor,
                 cache: EncDecCache, block_tables: torch.Tensor,
                 positions: torch.Tensor,
-                lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lanes: Optional[torch.Tensor] = None,
+                rt: Runtime = LOCAL) -> torch.Tensor:
     """tokens (B,1), sequence b's token at ``positions[b]`` with its
-    cross K/V in row ``lanes[b]`` (default b) → (B,1,V) logits; one KV
-    slot per sequence and decoder layer written."""
+    cross K/V in row ``lanes[b]`` (default b) → (B,1,V) logits (this
+    rank's vocabulary block under a mesh); one KV slot per sequence and
+    decoder layer written."""
     cfg = model.cfg
+    _check_layout(cache, rt)
     B = tokens.shape[0]
-    x = embed(model.embed, tokens)
+    x = embed_inputs(model, tokens, rt=rt)
     x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)[:, None]
     rows = slice(B) if lanes is None else _rows(lanes, tokens)
     enc_kv = {n: t[:, rows] for n, t in cache.cross.items()}
     x = _decoder(model, x, lambda l, p, y: attn.decode_attention(
         p, y, cfg, "global", cache.k[l], cache.v[l], block_tables,
-        positions), enc_kv)
-    return _logits(model, x)
+        positions, rt, cache.layout), enc_kv, rt=rt)
+    return _logits(model, x, rt)

@@ -74,6 +74,13 @@ def params_from_jax(cfg: ArchConfig, np_params: dict,
     return lib.params_from_jax(cfg, np_params, device)
 
 
+def module_from_tree(cfg: ArchConfig, tree: dict) -> torch.nn.Module:
+    """The module for ``cfg`` whose parameters are the param tree's
+    tensors (the inverse of :func:`param_tree`)."""
+    lib = encdec if cfg.is_encoder_decoder else transformer
+    return lib.module_from_tree(cfg, tree)
+
+
 def param_tree(params: torch.nn.Module) -> dict:
     """``params`` as the reference's param pytree (see
     :func:`repro_torch.models.transformer.param_tree`)."""

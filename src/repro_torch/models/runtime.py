@@ -8,12 +8,13 @@ backward; the reference's ``"dots"`` names a policy its code never
 reads).  ``Runtime()`` with no mesh (:data:`LOCAL`) is the one-device
 path.  A mesh-ful runtime (``ShardingPlan.runtime``) makes the model's
 entry points run this rank's part of the sharded program, with the
-collectives of ``distributed.collectives`` where GSPMD would insert
-them.  A MoE layer then runs expert-parallel, its experts over the data
-axes as the sharding rules put them, and the KV layout (head- or
-sequence-sharded) comes from ``cache_pspecs``: the reference's
-``moe``, ``attn_shard`` and ``ep_axes`` (always its data axes) have no
-counterpart.
+collectives of ``distributed.collectives`` where GSPMD would insert them
+(:meth:`Runtime.reduce_tp`, :meth:`Runtime.replicate_tp` and
+:meth:`Runtime.gather_tp` for the tp axis).  A MoE layer then runs
+expert-parallel, its experts over the data axes as the sharding rules
+put them, and the KV layout (head- or sequence-sharded) comes from
+``cache_pspecs``: the reference's ``moe``, ``attn_shard`` and
+``ep_axes`` (always its data axes) have no counterpart.
 
 The reference's XLA-only knobs (``scan_unroll``, ``blocked_attn``,
 ``attn_block_k``, ``onehot_cache_update``, ``grouped_gqa_decode``, the
@@ -83,6 +84,15 @@ class Runtime:
             return x
         from repro_torch.distributed.collectives import replicate
         return replicate(x, self.mesh, self.tp_axis)
+
+    def gather_tp(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The tp ranks' blocks of ``x`` concatenated along ``dim``, for
+        work split over tp that reads the whole (its gradient is
+        reduce-scattered back to the blocks); no mesh: ``x``."""
+        if not self.sharded:
+            return x
+        from repro_torch.distributed.collectives import all_gather
+        return all_gather(x, self.mesh, self.tp_axis, dim)
 
 
 LOCAL = Runtime()

@@ -18,6 +18,20 @@ m starts at −1e30.
 State shapes (per layer):
   mLSTM: C (B,H,dh,dh), n (B,H,dh), m (B,H)
   sLSTM: c,n,h (B,H,dh), m (B,H,dh)
+
+Under a mesh-ful runtime the sharding rules split the cells' input
+products on their contracted dim (mLSTM's ``inner``: ``wq``/``wk``/
+``wv``, ``w_i``/``w_f``; sLSTM's ``d``: ``w_z``/``w_o``) and keep the
+recurrent matrices and the states whole.  So each rank's products are
+tp partials, summed in float32 over tp and rounded once (as
+``layers.partial_product``), and every tp rank runs the same recurrence
+on the whole q, k, v and gates: the steps, and the stabilised updates
+of C1's kind in them (``f·C + i·v kᵀ``, ``f·n + i·k``, ``f·c + i·z``),
+are the one-device code on the same values.  mLSTM's up-projections
+and ``w_down`` are column- and row-parallel over ``inner``; sLSTM's
+``w_ff_up`` is gathered whole in the compute view (its two halves would
+straddle the ranks' blocks) and ``w_ff_down`` is row-parallel where
+its rows split.
 """
 from __future__ import annotations
 
@@ -26,7 +40,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, rmsnorm, softplus
+from repro_torch.models.layers import dense_init, partial_product, \
+    rmsnorm, softplus
+from repro_torch.models.runtime import LOCAL
 
 #: the stabiliser's start: no step has been seen
 M_INIT = -1e30
@@ -86,21 +102,31 @@ def _mlstm_step(state: dict, q, k, v, i_pre, log_f) -> tuple[dict,
     return {"C": C_new, "n": n_new, "m": m_new}, num / den
 
 
-def mlstm_sequence(params, x_inner: torch.Tensor, state: dict
+def mlstm_sequence(params, x_inner: torch.Tensor, state: dict, rt=LOCAL
                    ) -> tuple[torch.Tensor, dict]:
     """x_inner (B,S,inner) → (h (B,S,inner) in x_inner's dtype, final
-    state).  Exact: one step per token."""
-    B, S, inner = x_inner.shape
+    state).  Exact: one step per token.  x_inner may be a tp rank's
+    block of ``inner`` (the params then are too): the q/k/v and gate
+    products are then its float32 partials, summed over tp."""
+    B, S, m = x_inner.shape
     _, H, dh = params["wq"].shape
-
-    def heads(w):
-        return (x_inner @ w.reshape(inner, H * dh)).view(B, S, H, dh) \
-            .float()
-
-    q, k, v = heads(params["wq"]), heads(params["wk"]), heads(params["wv"])
     xf = x_inner.float()
-    i_pre = xf @ params["w_i"] + params["b_i"]             # (B,S,H)
-    log_f = -softplus(-(xf @ params["w_f"] + params["b_f"]))
+    if m < H * dh:
+        prods = [partial_product(x_inner, params[w].reshape(m, H * dh))
+                 for w in ("wq", "wk", "wv")]
+        prods += [xf @ params["w_i"], xf @ params["w_f"]]
+        # one sum over tp for all five
+        whole = rt.reduce_tp(torch.cat(prods, dim=-1)).split(
+            [H * dh] * 3 + [H] * 2, dim=-1)
+        q, k, v = (t.to(x_inner.dtype).view(B, S, H, dh).float()
+                   for t in whole[:3])
+        i_raw, f_raw = whole[3:]
+    else:
+        q, k, v = ((x_inner @ params[w].reshape(m, H * dh)).view(
+            B, S, H, dh).float() for w in ("wq", "wk", "wv"))
+        i_raw, f_raw = xf @ params["w_i"], xf @ params["w_f"]
+    i_pre = i_raw + params["b_i"]                           # (B,S,H)
+    log_f = -softplus(-(f_raw + params["b_f"]))
     hs = []
     for t in range(S):
         state, h = _mlstm_step(state, q[:, t], k[:, t], v[:, t],
@@ -110,23 +136,36 @@ def mlstm_sequence(params, x_inner: torch.Tensor, state: dict
     return h.to(x_inner.dtype), state
 
 
-def mlstm_block(params, x: torch.Tensor, state: dict
+def _block_of(rt, x: torch.Tensor, m: int) -> torch.Tensor:
+    """This tp rank's block of m columns of the replicated x, entering
+    work split over tp."""
+    i = rt.tp_index
+    return rt.replicate_tp(x)[..., i * m:(i + 1) * m]
+
+
+def mlstm_block(params, x: torch.Tensor, state: dict, rt=LOCAL
                 ) -> tuple[torch.Tensor, dict]:
     """LN → up-proj (two branches) → cell → SiLU-gated merge →
     down-proj → residual."""
     y = rmsnorm(params["ln"], x)
+    m = params["w_up"].shape[1]
+    split = m < params["out_ln"].shape[0]
+    if split:
+        y = rt.replicate_tp(y)
     up = y @ params["w_up"]
     gate = y @ params["w_gate_branch"]
-    h, state = mlstm_sequence(params, up, state)
+    h, state = mlstm_sequence(params, up, state, rt)
     h = rmsnorm(params["out_ln"], h)
+    if split:
+        h = _block_of(rt, h, m)
     h = h * F.silu(gate.float()).to(h.dtype)
+    if split:
+        return x + rt.reduce_tp(partial_product(h, params["w_down"])).to(
+            x.dtype), state
     return x + h @ params["w_down"], state
 
 
 # =========================== sLSTM ============================================
-_GATES = ("z", "i", "f", "o")
-
-
 def init_slstm_block(gen: torch.Generator, cfg, dtype, device) -> dict:
     d = cfg.d_model
     H = cfg.num_heads
@@ -193,15 +232,26 @@ def _slstm_step(params, state: dict, inp: dict) -> tuple[dict,
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}, h_new
 
 
-def slstm_block(params, x: torch.Tensor, state: dict
+def slstm_block(params, x: torch.Tensor, state: dict, rt=LOCAL
                 ) -> tuple[torch.Tensor, dict]:
     """sLSTM residual block and its gated FFN (the xLSTM paper's
     structure).  As in the reference, ``out_ln`` normalises both the
     cell's output and the FFN's input."""
     B, S, d = x.shape
     y = rmsnorm(params["ln"], x).float()
+    m = params["w_z"].shape[0]
     inputs = {g: (y @ params[f"w_{g}"].float().reshape(d, -1))
-              .view(B, S, *params[f"w_{g}"].shape[1:]) for g in _GATES}
+              .view(B, S, *params[f"w_{g}"].shape[1:]) for g in ("i", "f")}
+    if m < d:                          # w_z, w_o split on d over tp
+        ys = _block_of(rt, y, m)
+        zo = rt.reduce_tp(torch.cat([ys @ params[f"w_{g}"].float().reshape(
+            m, -1) for g in ("z", "o")], dim=-1))
+        for g, t in zip(("z", "o"), zo.chunk(2, dim=-1)):
+            inputs[g] = t.view(B, S, *params[f"w_{g}"].shape[1:])
+    else:
+        inputs.update({g: (y @ params[f"w_{g}"].float().reshape(d, -1))
+                       .view(B, S, *params[f"w_{g}"].shape[1:])
+                       for g in ("z", "o")})
     hs = []
     for t in range(S):
         state, h = _slstm_step(params, state,
@@ -212,4 +262,8 @@ def slstm_block(params, x: torch.Tensor, state: dict
     y2 = rmsnorm(params["out_ln"], x)
     a, b = (y2 @ params["w_ff_up"]).chunk(2, dim=-1)
     hff = F.gelu(a.float(), approximate="tanh").to(x.dtype) * b
+    m = params["w_ff_down"].shape[0]
+    if m < hff.shape[-1]:              # w_ff_down's rows split over tp
+        return x + rt.reduce_tp(partial_product(
+            _block_of(rt, hff, m), params["w_ff_down"])).to(x.dtype), state
     return x + hff @ params["w_ff_down"], state

@@ -48,8 +48,10 @@ logits stay vocab-sharded (:func:`greedy` picks a token from them); the
 attention and dense-MLP projections are column- and row-parallel; the
 MoE MLP is expert-parallel (``moe.moe_mlp_ep``); the KV cache follows
 its :class:`~repro_torch.distributed.sharding.KVLayout`.  Norms are
-replicated.  Sharded execution covers the attention families; the
-RG-LRU, xLSTM and encoder-decoder families raise (ROADMAP slice 11).
+replicated.  A recurrent layer runs as ``models.rglru`` and
+``models.ssm`` describe (RG-LRU over blocks of its channels, the xLSTM
+cells with their products split and their recurrences whole on every tp
+rank), from the state the layout gives it.
 """
 from __future__ import annotations
 
@@ -153,10 +155,18 @@ class Block(nn.Module):
             else:
                 out = moe_lib.moe_mlp(self.moe, y.reshape(B * S, d), cfg)
             return out.reshape(B, S, d)
-        if rt.sharded and cfg.d_ff % rt.tp_size == 0:
-            return rt.reduce_tp(mlp(self.mlp, rt.replicate_tp(y),
-                                    cfg.mlp_kind, partial=True)).to(y.dtype)
-        return mlp(self.mlp, y, cfg.mlp_kind)
+        return dense_mlp(self.mlp, y, cfg, rt)
+
+
+def dense_mlp(params, y: torch.Tensor, cfg: ArchConfig,
+              rt: Runtime = LOCAL) -> torch.Tensor:
+    """The dense MLP on the normed y; under a mesh whose tp splits d_ff,
+    w_gate/w_up column- and w_down row-parallel, the float32 partials
+    summed over tp."""
+    if rt.sharded and cfg.d_ff % rt.tp_size == 0:
+        return rt.reduce_tp(mlp(params, rt.replicate_tp(y), cfg.mlp_kind,
+                                partial=True)).to(y.dtype)
+    return mlp(params, y, cfg.mlp_kind)
 
 
 class RecurrentBlock(nn.Module):
@@ -175,17 +185,27 @@ class RecurrentBlock(nn.Module):
             self.cell = _params(weights["cell"])
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig, state: dict,
-                decode: bool) -> tuple[torch.Tensor, dict]:
+                decode: bool, rt: Runtime = LOCAL
+                ) -> tuple[torch.Tensor, dict]:
         """x (B, S, d) from ``state`` (B rows) → (x, the new state)."""
         if self.kind == "rglru":
             step = (rglru_lib.rglru_decode_step if decode
                     else rglru_lib.rglru_block)
-            x, state = step(self.rec, x, state)
-            return x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.mlp_kind), \
+            x, state = step(self.rec, x, state, rt)
+            return x + dense_mlp(self.mlp, rmsnorm(self.ln2, x), cfg, rt), \
                 state
         block = (ssm_lib.mlstm_block if self.kind == "mlstm"
                  else ssm_lib.slstm_block)
-        return block(self.cell, x, state)
+        return block(self.cell, x, state, rt)
+
+    def fresh_state(self, batch: int, cfg: ArchConfig,
+                    device) -> dict[str, torch.Tensor]:
+        """A new sequence's state for this layer's (block of the)
+        weights."""
+        if self.kind == "rglru":
+            return rglru_lib.rglru_state(batch, cfg, device,
+                                         width=self.rec["w_a"].shape[1])
+        return _STATE[self.kind](batch, cfg, device)
 
 
 class Transformer(nn.Module):
@@ -321,20 +341,24 @@ def _as_reference(name: str, t: torch.Tensor):
     return {"scale": t} if name in NORMS else t
 
 
+def layer_of(sub, p: Optional[int]):
+    """Layer ``p``'s weights dict from a param tree's layer subtree (its
+    groups' member p; ``None``: a tail layer's own tensors), the
+    rmsnorm ``{"scale": s}`` dicts unwrapped."""
+    if isinstance(sub, dict):
+        if set(sub) == {"scale"}:
+            return layer_of(sub["scale"], p)
+        return {k: layer_of(v, p) for k, v in sub.items()}
+    return sub[p] if isinstance(sub, list) else sub
+
+
 def module_from_tree(cfg: ArchConfig, tree: dict) -> Transformer:
     """The inverse of :func:`param_tree`: a :class:`Transformer` whose
     parameters are the tree's tensors (shared, not copied)."""
-    def layer(sub, p):
-        if isinstance(sub, dict):
-            if set(sub) == {"scale"}:
-                return layer(sub["scale"], p)
-            return {k: layer(v, p) for k, v in sub.items()}
-        return sub[p] if isinstance(sub, list) else sub
-
     P = len(cfg.pattern)
-    layers = [layer(tree["periods"][f"k{j}"], p)
+    layers = [layer_of(tree["periods"][f"k{j}"], p)
               for p in range(cfg.n_periods) for j in range(P)]
-    layers += [layer(tree[f"tail{j}"], None)
+    layers += [layer_of(tree[f"tail{j}"], None)
                for j in range(len(cfg.tail_kinds))]
     weights = {"embed": tree["embed"]["table"],
                "final_norm": tree["final_norm"]["scale"], "layers": layers}
@@ -412,33 +436,32 @@ def init_cache(cfg: ArchConfig, total_pages: int, page_tokens: int,
     """Page pools for the attention layers and ``lanes`` rows of state
     for the recurrent ones; under a sharded ``layout`` (a
     ``distributed.sharding.KVLayout``), this rank's pools, which hold
-    its H_kv/tp heads when the layout splits heads."""
+    its H_kv/tp heads when the layout splits heads, and its block of the
+    RG-LRU channels when the layout splits them."""
     kinds = layer_kinds(cfg)
-    heads = cfg.num_kv_heads
+    heads, tp = cfg.num_kv_heads, 1
     if layout is not None:
-        check_shardable(cfg)
         heads //= rt.tp_size if layout.heads else 1
+        tp = rt.tp_size if layout.state_tp else 1
     shape = (total_pages, page_tokens, heads, cfg.head_dim)
     n_attn = sum(k in ATTN_KINDS for k in kinds)
     dt = rt.cache_dtype()
     recurrent = [k for k in kinds if k not in ATTN_KINDS]
+    width = (cfg.rnn_width or cfg.d_model) // tp
+
+    def state(kind, rows):
+        if kind == "rglru":
+            return rglru_lib.rglru_state(rows, cfg, device, width=width)
+        return _STATE[kind](rows, cfg, device)
+
     return PagedKVCache(
         k=[torch.zeros(shape, dtype=dt, device=device)
            for _ in range(n_attn)],
         v=[torch.zeros(shape, dtype=dt, device=device)
            for _ in range(n_attn)],
-        state=[_STATE[k](lanes, cfg, device) for k in recurrent],
-        fresh=[_STATE[k](1, cfg, device) for k in recurrent],
+        state=[state(k, lanes) for k in recurrent],
+        fresh=[state(k, 1) for k in recurrent],
         layout=layout)
-
-
-def check_shardable(cfg: ArchConfig) -> None:
-    """Raise for a family whose sharded execution is not ported yet."""
-    other = sorted(set(layer_kinds(cfg)) - set(ATTN_KINDS))
-    if other or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded execution of {other or 'encoder-decoder'} "
-            "layers is ROADMAP slice 11 (the sharding rules cover them)")
 
 
 # ============================ trunk ============================================
@@ -487,11 +510,12 @@ def _rows(lanes: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def _recurrent(layer: RecurrentBlock, x: torch.Tensor, cfg: ArchConfig,
-               state: dict, rows: torch.Tensor, decode: bool
-               ) -> torch.Tensor:
+               state: dict, rows: torch.Tensor, decode: bool,
+               rt: Runtime = LOCAL) -> torch.Tensor:
     """Run a recurrent layer on the sequences of ``rows`` and write their
     new state back into those rows."""
-    x, new = layer(x, cfg, {k: t[rows] for k, t in state.items()}, decode)
+    x, new = layer(x, cfg, {k: t[rows] for k, t in state.items()}, decode,
+                   rt)
     for k, t in state.items():
         t[rows] = new[k]
     return x
@@ -536,8 +560,8 @@ def _train_layer(layer: nn.Module, x: torch.Tensor, cfg: ArchConfig,
     if layer.kind in ATTN_KINDS:
         return layer(x, cfg, lambda p, y: attn.attention_block(
             p, y, cfg, layer.kind, positions, rt), rt)
-    state = _STATE[layer.kind](x.shape[0], cfg, x.device)
-    return layer(x, cfg, state, False)[0]
+    return layer(x, cfg, layer.fresh_state(x.shape[0], cfg, x.device),
+                 False, rt)[0]
 
 
 def _train_layers(layers, x: torch.Tensor, cfg: ArchConfig,
@@ -560,8 +584,6 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
     as they are, as in the reference."""
     check_remat(remat)
     cfg = model.cfg
-    if rt.sharded:
-        check_shardable(cfg)
     x = embed_inputs(model, tokens, extra_embed, rt)
     positions = torch.arange(x.shape[1], device=x.device)
     P = len(cfg.pattern)
@@ -605,7 +627,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: PagedKVCache,
                                              cache.v[j], block_tables, rt,
                                              cache.layout), rt)
         else:
-            x = _recurrent(layer, x, cfg, cache.state[j], rows, False)
+            x = _recurrent(layer, x, cfg, cache.state[j], rows, False, rt)
     return _logits(model, x[:, -1:, :], rt)
 
 
@@ -631,5 +653,5 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
                                             positions, rt, cache.layout),
                       rt)
         else:
-            x = _recurrent(layer, x, cfg, cache.state[j], rows, True)
+            x = _recurrent(layer, x, cfg, cache.state[j], rows, True, rt)
     return _logits(model, x, rt)

@@ -9,11 +9,12 @@ attends through the flash-prefill and paged-decode kernels' plain
 versions; the reference decodes on its dense per-lane cache.  Denied
 requests, every request's greedy output tokens, the finish order and
 every timestamp must be identical, and so must the pool's settled
-token counts.  Last, ``repro_torch.launch.serve`` prints what
-``repro.launch.serve`` prints.
+token counts.  That ``repro_torch.launch.serve`` prints what
+``repro.launch.serve`` prints is held in
+``tests/test_torch_serve_launcher.py`` and
+``tests/test_torch_serve_launcher_more.py`` (one half of the archs
+each, so that ``--dist loadfile`` runs them on two workers).
 """
-import sys
-
 import jax
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import Runtime, build_model, params_from_jax
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 SLOTS, MAX_TOKENS = 3, 12
 
@@ -139,28 +141,6 @@ def test_engine_matches_reference(models, seed, tps, evict):
     if tps < 100:
         assert "denied" in states
     assert flash_attention.launches == 0 and paged_attention.launches == 0
-
-
-@pytest.mark.parametrize("arch", [
-    pytest.param(None, id="default-qwen3-8b"), "deepseek-7b",
-    "tinyllama-1.1b", "gemma2-2b", "gemma2-9b", "qwen3-moe-30b-a3b",
-    "qwen3-moe-235b-a22b", "recurrentgemma-2b", "xlstm-350m",
-    "internvl2-2b"])
-def test_serve_launcher_prints_the_same(monkeypatch, capsys, arch):
-    """The default arch (qwen3-8b) and every other arch the engine
-    serves (whisper-small it cannot: fault C10): 16 requests on 4 slots
-    in full waves, so no lane is idle during a decode (the engines
-    differ there for MoE: fault C9)."""
-    from repro.launch import serve as jax_serve
-    from repro_torch.launch import serve as port_serve
-    flags = [] if arch is None else ["--arch", arch]
-    monkeypatch.setattr(sys, "argv", ["serve", *flags])
-    jax_serve.main()
-    ref = capsys.readouterr().out
-    port_serve.main(["--device", "cpu", *flags])
-    out = capsys.readouterr().out
-    assert out == ref
-    assert "pool tokens served" in out
 
 
 def test_engine_runs_on_the_params_device(models):

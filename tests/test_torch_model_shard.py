@@ -31,8 +31,10 @@ from repro_torch.distributed.collectives import all_gather
 from repro_torch.distributed.sharding import kv_layout, make_plan, \
     shard_module
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models import Runtime, build_model, params_from_jax
-from torch_shard_support import ARCHS, MESHES, reduced, run_reference
+from repro_torch.models import build_model, params_from_jax
+from torch_shard_support import ARCHS, MESHES, reduced, run_reference, \
+    run_serve, serve_one_device
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = 1e-4
 MAX_SEQ = 64
@@ -64,20 +66,6 @@ def cases():
             out[(arch, mesh)] = (arch, mesh) + inputs(arch)
     for arch in CP_ARCHS:
         out[(arch, "cp")] = (arch, (2, 4)) + inputs(arch, 1)
-    return out
-
-
-def run_serve(model, params, tokens, fed, extra, cache, tables, rt):
-    t = torch.from_numpy
-    ex = None if extra is None else t(extra)
-    n0 = tokens.shape[1] + (0 if extra is None else extra.shape[1])
-    out = [model.prefill(params, t(tokens).long(), cache, tables,
-                         extra_embed=ex, rt=rt)]
-    for s in range(fed.shape[1]):
-        out.append(model.decode_step(
-            params, t(fed[:, s:s + 1]).long(), cache, tables,
-            torch.full((tokens.shape[0],), n0 + s, dtype=torch.int32),
-            rt=rt))
     return out
 
 
@@ -135,16 +123,9 @@ def port(reference):
 
 def one_device(reference, arch, tokens, fed, extra):
     """The port on one device (its own paged cache, LOCAL)."""
-    cfg = reduced(arch, **overrides(arch))
-    model = build_model(cfg)
-    params = params_from_jax(cfg, reference[("params", arch)], "cpu")
-    b, T = tokens.shape[0], 16
-    mp = MAX_SEQ // T
-    rt = Runtime(kv_cache_dtype="float32")
-    cache = model.init_cache(b * mp, T, rt, "cpu")
-    tables = torch.arange(b * mp, dtype=torch.int32).reshape(b, mp)
-    return [x.numpy() for x in run_serve(model, params, tokens, fed, extra,
-                                         cache, tables, rt)]
+    return serve_one_device(reduced(arch, **overrides(arch)),
+                            reference[("params", arch)], tokens, fed, extra,
+                            MAX_SEQ)
 
 
 def close(got, want, what):

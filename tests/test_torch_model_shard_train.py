@@ -3,23 +3,25 @@ mesh-ful runtime over ``distributed.sharding.ShardedParams``) against
 the JAX package's sharded step and the port's one-device step, on CPU
 gloo ranks.
 
-The reduced configs of ``tests/test_distributed.py`` on 1×2, 2×2 and
-2×4 meshes: FSDP over ``data`` (the stored blocks gathered before use,
-the gradients reduce-scattered), tensor parallelism over ``model``, the
-MoE's experts over ``data``, a vocab-parallel loss, AdamW on the blocks
-(ZeRO).  One step on 8 × 32 tokens (internvl2-2b: behind 8 patch
-embeddings), in the configs' bfloat16 as the reference's own test
+The reduced configs of ``tests/test_distributed.py`` on 1×2, 2×2 and 2×4
+meshes (2×4's cases in ``tests/test_torch_model_shard_train_2x4.py``, so
+that ``--dist loadfile`` runs its launch on another worker): FSDP over
+``data`` (the stored blocks gathered before use, the gradients
+reduce-scattered), tensor parallelism over ``model``, the MoE's experts
+over ``data``, a vocab-parallel loss, AdamW on the blocks (ZeRO).  One
+step on 8 × 32 tokens (internvl2-2b: behind 8 patch embeddings), in the
+configs' bfloat16 as the reference's own test
 (``test_sharded_train_matches_single_device``) with its bounds: loss
 rtol 2e-3, params rtol 5e-2 and atol 5e-3.  In float32 the step is held
 tighter to the port's one-device step: the loss and the params to 1e-5,
 the global grad norm (each element counted once) to 1e-4, each leaf's
-update p_new − p_old and first moment at a bound set by that leaf's
-own change (a step that loses its update or puts a gradient block on
-another rank keeps the loss and the norm; two such planted faults must
-fail), with int8 compression (each leaf's scale from its max over the
-mesh) as well.  Top-k compression under a mesh is refused (fault C12).
-The reference runs in a subprocess on an Auto-axis mesh of 8 host
-devices (C4).
+update p_new − p_old and first moment at a bound set by that leaf's own
+change (a step that loses its update or puts a gradient block on another
+rank keeps the loss and the norm; two such planted faults must fail),
+with int8 compression (each leaf's scale from its max over the mesh) as
+well.  Top-k compression under a mesh is refused (fault C12).  The
+reference runs in a subprocess on an Auto-axis mesh of 8 host devices
+(C4).
 """
 import contextlib
 import math
@@ -39,28 +41,12 @@ from repro_torch.training.grad_compress import CompressorConfig, \
     init_error_state
 from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_loop import TrainConfig, make_train_step
-from repro_torch.tree import is_group, leaves_with_paths, map_leaves, \
-    stacked, tensors
-from torch_shard_support import ARCHS, MESHES, reduced, run_reference
+from repro_torch.tree import is_group, map_leaves, tensors
+from torch_shard_support import ARCHS, INT8_MU_SHARE, MESHES, NORM_RTOL, \
+    assert_update_matches, leaves, reduced, run_reference
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 F32 = {"dtype": "float32"}
-#: the global grad norm sums its squares in another order on a mesh
-#: (1.4e-5 seen); a leaf counted on every rank would be off by √2 or more
-NORM_RTOL = 1e-4
-#: the float32 update p_new − p_old of each leaf, held to the other
-#: step's within this share of its norm.  AdamW's first step moves each
-#: element by about lr·sign(g), 3e-6 at the default warmup and far under
-#: the params' 1e-5: a lost update is off by 1, gradient blocks on
-#: another rank by about √2, while the signs of a few near-zero gradients
-#: that sum in another order flip (6e-5 of a leaf's elements, 1.1e-2 of
-#: its norm seen)
-STEP_SHARE = 5e-2
-#: each leaf's first moment µ = (1 − β1)·g, element by element, within
-#: this share of the leaf's largest |µ| (4.3e-4 seen); under int8
-#: compression one quantisation level of the leaf (1/127 of its max) may
-#: differ where a gradient lies at a rounding boundary
-MU_SHARE = 2e-3
-INT8_MU_SHARE = 1.5 / 127
 #: the planted faults that the update check must catch, on 2×2
 FAULTS = ("lost_update", "swapped_blocks")
 
@@ -98,11 +84,6 @@ def one_step(model, params, opt, err, tcfg, rt, arch, rows=slice(None)):
         b["extra_embed"] = torch.from_numpy(extra[rows])
     step = make_train_step(model, tcfg, *([rt] if rt else []))
     return step(params, opt, err, b)
-
-
-def leaves(tree) -> list:
-    return [stacked(leaf).detach().float().numpy() for _, leaf in
-            leaves_with_paths(tree)]
 
 
 # -- the ranks (no JAX) -------------------------------------------------------
@@ -183,34 +164,49 @@ def train_rank(shape, todo: dict, weights: dict) -> dict:
 #: the MoE's float32 steps on two data ranks are held to the reference's
 #: sharded step: there its capacity comes from the rank's tokens
 MOE_DP = [("qwen3-moe-30b-a3b", m) for m in MESHES if m[0] > 1]
+#: the meshes this file runs; 2×4's cases run in
+#: tests/test_torch_model_shard_train_2x4.py (its own worker)
+HERE = ((1, 2), (2, 2))
 
 
-@pytest.fixture(scope="module")
-def reference():
+def reference_for(meshes) -> dict:
+    """The reference's params and sharded steps on ``meshes``."""
     jobs = {("params", arch, f32): ("params", (arch, F32 if f32 else {}))
             for arch in ARCHS for f32 in (False, True)}
     for arch in ARCHS:
-        for mesh in MESHES:
+        for mesh in meshes:
             tokens, targets, extra = batch(arch)
             jobs[(arch, mesh)] = ("train", (arch, {}, mesh, tokens, targets,
                                             extra))
     for arch, mesh in MOE_DP:
-        tokens, targets, extra = batch(arch)
-        jobs[(arch, mesh, "f32")] = ("train", (arch, F32, mesh, tokens,
-                                               targets, extra))
+        if mesh in meshes:
+            tokens, targets, extra = batch(arch)
+            jobs[(arch, mesh, "f32")] = ("train", (arch, F32, mesh, tokens,
+                                                   targets, extra))
     return run_reference(jobs)
 
 
-@pytest.fixture(scope="module")
-def port(reference):
+def port_for(reference, meshes) -> dict:
+    """One launch of ranks a mesh of ``meshes``, each computing every
+    case of its mesh."""
     weights = {(arch, f32): reference[("params", arch, f32)]
                for arch in ARCHS for f32 in (False, True)}
     out = {}
-    for mesh in MESHES:
+    for mesh in meshes:
         todo = {k: v for k, v in cases().items() if v[1] == mesh}
         out.update(launch_ranks(train_rank, math.prod(mesh), mesh, todo,
                                 weights, timeout=300.0)[0])
     return out
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return reference_for(HERE)
+
+
+@pytest.fixture(scope="module")
+def port(reference):
+    return port_for(reference, HERE)
 
 
 def initial(reference, arch) -> list:
@@ -233,25 +229,7 @@ def one_device(reference, arch, comp="none") -> dict:
             "leaves": leaves(param_tree(params)), "mu": leaves(opt.mu)}
 
 
-def assert_update_matches(got: dict, want: dict, init: list,
-                          mu_share: float = MU_SHARE) -> None:
-    """The new params within 1e-5; each leaf's update within
-    ``STEP_SHARE`` of its norm and its first moment within ``mu_share``
-    of its largest element."""
-    assert len(got["leaves"]) == len(want["leaves"]) == len(init)
-    for a, b, p0 in zip(got["leaves"], want["leaves"], init):
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
-        step = b - p0
-        assert np.abs(step).max() > 0
-        assert (np.linalg.norm((a - p0) - step)
-                <= STEP_SHARE * np.linalg.norm(step))
-    assert len(got["mu"]) == len(want["mu"])
-    for a, b in zip(got["mu"], want["mu"]):
-        np.testing.assert_allclose(a, b, rtol=0,
-                                   atol=mu_share * np.abs(b).max())
-
-
-@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("mesh", HERE, ids=lambda m: f"{m[0]}x{m[1]}")
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_train_step_matches_reference(reference, port, arch, mesh):
     """bfloat16, the reference's own bounds on the loss and the params.
@@ -259,6 +237,10 @@ def test_sharded_train_step_matches_reference(reference, port, arch, mesh):
     bfloat16 the update rounds away and the gradients are rounding noise
     (the reference's own first moments on 2×4 and on 1×2 differ by up to
     0.9 of their norm)."""
+    check_against_reference(reference, port, arch, mesh)
+
+
+def check_against_reference(reference, port, arch, mesh) -> None:
     loss, ref_leaves, _ = reference[(arch, mesh)]
     got = port[(arch, mesh)]
     np.testing.assert_allclose(got["loss"], loss, rtol=2e-3)
@@ -267,7 +249,7 @@ def test_sharded_train_step_matches_reference(reference, port, arch, mesh):
         np.testing.assert_allclose(a, b, rtol=5e-2, atol=5e-3)
 
 
-@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("mesh", HERE, ids=lambda m: f"{m[0]}x{m[1]}")
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_train_step_matches_one_device(reference, port, arch, mesh):
     """Float32: the loss of the sharded step equals the one-device
@@ -276,6 +258,10 @@ def test_sharded_train_step_matches_one_device(reference, port, arch, mesh):
     :func:`assert_update_matches` holds them.  The MoE on two data ranks
     is held to the reference's float32 sharded step instead, as its
     capacity there comes from the rank's tokens."""
+    check_against_one_device(reference, port, arch, mesh)
+
+
+def check_against_one_device(reference, port, arch, mesh) -> None:
     got = port[(arch, mesh, "f32")]
     if (arch, mesh) in MOE_DP:
         loss, new, mu = reference[(arch, mesh, "f32")]

@@ -46,6 +46,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import build_model, param_tree, params_from_jax
 from repro_torch.training.loss import lm_loss
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 moe_mod = importlib.import_module("repro_torch.models.moe")
 

@@ -59,6 +59,7 @@ from repro_torch.training.grad_compress import CompressorConfig
 from repro_torch.training.optimizer import OptimizerConfig, adamw_init
 from repro_torch.training.train_loop import TrainConfig, TrainLoop, \
     make_train_step
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 TOL_FAMILIES = (2e-3, 2e-2)
 LOSS_RTOL_F32, LOSS_RTOL_INT8 = 1e-4, 1e-3

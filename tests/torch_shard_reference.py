@@ -51,6 +51,23 @@ def reduced(arch, **over):
                         d_ff=0 if base.d_ff == 0 else 256, **over)
 
 
+def fan_in_d(p, cfg):
+    """The params with every attention layer's wq and wk scaled to the
+    fan-in d (the init draws them at the head count's, fault C14)."""
+    def one(path, x):
+        keys = [getattr(k, "key", None) for k in path]
+        if keys[-1] in ("wq", "wk") and keys[-2] in ("attn", "self_attn",
+                                                     "cross_attn"):
+            return x * np.sqrt(x.shape[-2] / cfg.d_model).astype(x.dtype)
+        return x
+    return jax.tree_util.tree_map_with_path(one, p)
+
+
+def init(model, cfg, fan_d):
+    p = model.init(jax.random.PRNGKey(0))
+    return fan_in_d(p, cfg) if fan_d else p
+
+
 def put(tree, specs, mesh):
     return jax.tree.map(
         lambda x, s: jax.device_put(x, NamedSharding(mesh, s)), tree, specs,
@@ -61,20 +78,21 @@ def rows(mesh, B, nd):
     return NamedSharding(mesh, P("data" if B % nd == 0 else None))
 
 
-def params(arch, over):
+def params(arch, over, fan_d=False):
     cfg = reduced(arch, **over)
-    return jax.tree.map(np.asarray,
-                        build_model(cfg).init(jax.random.PRNGKey(0)))
+    return jax.tree.map(np.asarray, init(build_model(cfg), cfg, fan_d))
 
 
-def serve(arch, over, mesh_shape, tokens, fed, extra, max_seq):
-    """Prefill logits, then one logits column a decode step fed ``fed``."""
+def serve(arch, over, mesh_shape, tokens, fed, extra, max_seq, fan_d=False):
+    """Prefill logits, then one logits column a decode step fed ``fed``
+    (``extra``: a VLM's patch embeddings before the prompt, or an
+    encoder-decoder's frames)."""
     cfg = reduced(arch, **over)
     model = build_model(cfg)
     mesh = auto_mesh(mesh_shape)
     plan = make_plan(cfg, mesh, "serve")
     rt = plan.runtime(kv_cache_dtype="float32")
-    p = model.init(jax.random.PRNGKey(0))
+    p = init(model, cfg, fan_d)
     cache = model.init_cache(tokens.shape[0], max_seq, rt)
     p = put(p, param_pspecs(plan, p), mesh)
     cache = put(cache, cache_pspecs(plan, cache), mesh)
@@ -86,7 +104,8 @@ def serve(arch, over, mesh_shape, tokens, fed, extra, max_seq):
     logits, cache = prefill(p, cache, jax.device_put(jnp.asarray(tokens), sh),
                             ex)
     out = [np.asarray(logits, np.float32)]
-    n0 = tokens.shape[1] + (0 if extra is None else extra.shape[1])
+    n0 = tokens.shape[1] + (0 if extra is None or cfg.is_encoder_decoder
+                            else extra.shape[1])
     for t in range(fed.shape[1]):
         logits, cache = decode(p, cache,
                                jax.device_put(jnp.asarray(fed[:, t:t + 1]),
@@ -95,7 +114,7 @@ def serve(arch, over, mesh_shape, tokens, fed, extra, max_seq):
     return out
 
 
-def train(arch, over, mesh_shape, tokens, targets, extra):
+def train(arch, over, mesh_shape, tokens, targets, extra, fan_d=False):
     """One sharded train step (tests/test_distributed.py's): the loss,
     the new params' leaves and the new first moments' leaves."""
     cfg = reduced(arch, **over)
@@ -113,7 +132,7 @@ def train(arch, over, mesh_shape, tokens, targets, extra):
         new, state, _ = adamw_update(p, grads, o, ocfg)
         return loss, new, state.mu
 
-    p = model.init(jax.random.PRNGKey(0))
+    p = init(model, cfg, fan_d)
     p = put(p, param_pspecs(plan, p), mesh)
     sh = rows(mesh, tokens.shape[0], mesh_shape[0])
     e = None if extra is None else jax.device_put(jnp.asarray(extra), sh)
