@@ -3619,8 +3619,14 @@ MSHARD_MU_SHARE = 2e-3
 #: one H100 SXM's NVLink 4 bandwidth each way (NVIDIA data sheet: 900
 #: GB/s in all, both ways), the roofline's link term
 NVLINK_BYTES_S = 450e9
-#: seconds of the parts the ``seconds:`` line names besides the phases
-PHASE_SECONDS: dict = {}
+
+
+def mshard_bound(flops: float, nbytes: float) -> tuple:
+    """The least ms of ``flops`` bfloat16 operations and ``nbytes``
+    moved on the card, and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
 
 
 def mshard_counts(fa_mod, pa_mod, reset: bool = False) -> dict:
@@ -4058,14 +4064,6 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
     bf16 = torch.bfloat16
     rows = []
 
-    def plain_ms(name, fn) -> float:
-        return mshard_plain_ms(timer, name, fn)
-
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_S
-        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                           else "bytes")
-
     # flash: one 498-token prefill on one rank of qwen3-8b at tp 2
     H, Hkv, dh, S = 16, 4, 128, 498
     q, k, v = (torch.randn(1, h, S, dh, device="cuda", generator=g).to(bf16)
@@ -4076,15 +4074,16 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
     err, ok = max_err(torch, out, ref, "bfloat16")
     check(ok, f"model_shard: flash at G 4 / 16 local heads off its plain "
           f"version by {err}")
-    b_ms, b_by = bound(4.0 * H * dh * S * (S + 1) / 2,
-                       2.0 * (2 * H + 2 * Hkv) * S * dh)
+    b_ms, b_by = mshard_bound(4.0 * H * dh * S * (S + 1) / 2,
+                              2.0 * (2 * H + 2 * Hkv) * S * dh)
     rows.append({
         "name": "flash_prefill_tp2", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU, "launches": launches["flash_prefill_tp2"],
         "max_abs_err": err,
         "ms": timer.ms(lambda: flash_attention(q, k, v, causal=True, out=o)),
-        "plain_ms": plain_ms("flash_prefill_tp2", lambda: reference_attention(
-            q, k, v, causal=True)),
+        "plain_ms": mshard_plain_ms(timer, "flash_prefill_tp2",
+                                    lambda: reference_attention(
+                                        q, k, v, causal=True)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
@@ -4102,9 +4101,9 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
         qd, kp, vp, bt, cl), "bfloat16")
     check(ok, f"model_shard: paged at G 4 / 16 local heads off by {err}")
     live = sum(ctx)
-    b_ms, b_by = bound(4.0 * H * dh * live,
-                       2.0 * (2 * 8 * H * dh + 2 * live * Hkv * dh)
-                       + 4.0 * (bt.numel() + 8))
+    b_ms, b_by = mshard_bound(4.0 * H * dh * live,
+                              2.0 * (2 * 8 * H * dh + 2 * live * Hkv * dh)
+                              + 4.0 * (bt.numel() + 8))
     K = -(-max(ctx) // 16) * 16
     pages = bt[:, :K // 16].long().clamp_min(0)
     dk = kp[pages].reshape(8, K, Hkv, dh).transpose(1, 2)
@@ -4116,9 +4115,9 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
         "replaces": PAGED_TPU, "launches": launches["paged_decode_tp2"],
         "max_abs_err": err,
         "ms": timer.ms(lambda: paged_decode_attention(qd, kp, vp, bt, cl)),
-        "plain_ms": plain_ms("paged_decode_tp2",
-                             lambda: reference_paged_attention(
-                                 qd, kp, vp, bt, cl)),
+        "plain_ms": mshard_plain_ms(timer, "paged_decode_tp2",
+                                    lambda: reference_paged_attention(
+                                        qd, kp, vp, bt, cl)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             qd[:, :, None], dk, dv, attn_mask=mask, enable_gqa=True)),
@@ -4153,9 +4152,10 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
               f"off its plain version: o {e1}, lse {e2}")
         errs.append(max(e1, e2))
     n_live = sum(local)
-    b_ms, b_by = bound(4.0 * H * dh * n_live,
-                       2.0 * 8 * H * dh + 2.0 * 2 * n_live * Hkv * dh
-                       + 4.0 * 8 * H * (dh + 1) + 4.0 * (bt.numel() + 16))
+    b_ms, b_by = mshard_bound(4.0 * H * dh * n_live,
+                              2.0 * 8 * H * dh + 2.0 * 2 * n_live * Hkv * dh
+                              + 4.0 * 8 * H * (dh + 1)
+                              + 4.0 * (bt.numel() + 16))
     pages = bt.long()
     dk = kp[pages].reshape(8, L, Hkv, dh).transpose(1, 2)
     dv = vp[pages].reshape(8, L, Hkv, dh).transpose(1, 2)
@@ -4168,9 +4168,9 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
         "max_abs_err": max(errs),
         "ms": timer.ms(lambda: paged_attention_partial(qd, kp, vp, bt, cl,
                                                        koff)),
-        "plain_ms": plain_ms("paged_partial",
-                             lambda: reference_paged_attention_partial(
-                                 qd, kp, vp, bt, cl, koff)),
+        "plain_ms": mshard_plain_ms(timer, "paged_partial",
+                                    lambda: reference_paged_attention_partial(
+                                        qd, kp, vp, bt, cl, koff)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             qd[:, :, None], dk, dv, attn_mask=lmask[:, None, None, :],
@@ -4417,7 +4417,8 @@ def mshard_family_one(mesh, arch: str, inputs: tuple, steps: int,
             "check_tokens": check_tokens.cpu().tolist(),
             "decode_ms": ms, "coll_ms": coll, "wall_s": wall,
             "tally": tally, "peak_gib": peak, "stats": stats, "lens": lens,
-            "max_seq": max_seq, "layout": str(layout)}
+            "max_seq": max_seq, "block_len": layout.block_len(mesh),
+            "layout": str(layout)}
 
 
 def mshard_family_rank(seed: int) -> dict:
@@ -4531,7 +4532,8 @@ def mshard_family_check(np, res: list, card: str) -> dict:
     return launches
 
 
-def mshard_family_rows(torch, seed: int, launches: dict) -> list:
+def mshard_family_rows(torch, seed: int, launches: dict, rg: dict,
+                       steps: int) -> list:
     """The kernel JSON's rows at (f)'s new shapes, each against its plain
     version within TOL_FAMILIES and timed beside SDPA: flash at
     recurrentgemma-2b's 5 local query heads over its one KV head (dh
@@ -4539,7 +4541,10 @@ def mshard_family_rows(torch, seed: int, launches: dict) -> list:
     prompt, and the paged kernel's partial route over rank 0's block of
     the main path's sequence-sharded cache at dh 256 and G 10 (the
     query heads gathered over tp) at its last step's contexts, the
-    window straddling the two ranks' blocks."""
+    window straddling the two ranks' blocks.  ``rg``: rank 0's result of
+    recurrentgemma-2b on the main path (its prompts' ``lens``, its
+    cache's ``max_seq`` and ``block_len``), ``steps`` its decode
+    steps."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, \
         reference_attention
@@ -4549,14 +4554,9 @@ def mshard_family_rows(torch, seed: int, launches: dict) -> list:
     g = torch.Generator(device="cuda").manual_seed(seed + 29)
     bf16, rows = torch.bfloat16, []
 
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_S
-        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                           else "bytes")
-
     # flash: the longest prompt's prefill on one rank of recurrentgemma
     # at tp 2 (the main path's prompts: mshard_family_inputs)
-    H, Hkv, dh, S, W = 5, 1, 256, 2447, 2048
+    H, Hkv, dh, S, W = 5, 1, 256, max(rg["lens"]), 2048
     q, k, v = (torch.randn(1, h, S, dh, device="cuda", generator=g).to(bf16)
                for h in (H, Hkv, Hkv))
     out = flash_attention(q, k, v, causal=True, window=W)
@@ -4567,7 +4567,8 @@ def mshard_family_rows(torch, seed: int, launches: dict) -> list:
     i = torch.arange(S, device="cuda")
     mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
     pairs = int(mask.sum())
-    b_ms, b_by = bound(4.0 * H * dh * pairs, 2.0 * (2 * H + 2 * Hkv) * S * dh)
+    b_ms, b_by = mshard_bound(4.0 * H * dh * pairs,
+                              2.0 * (2 * H + 2 * Hkv) * S * dh)
     rows.append({
         "name": "flash_prefill_rg_tp2", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,
@@ -4586,18 +4587,19 @@ def mshard_family_rows(torch, seed: int, launches: dict) -> list:
                  "causal, scalar route (one rank of recurrentgemma-2b at "
                  "tp 2)"})
 
-    # paged partial: rank 0's block (positions 0-1231 of 2,464) of the 4
-    # lanes at the main path's last step (prompts of 2,117-2,447 tokens,
-    # 8 more), all 10 query heads over 1 KV head
-    H, Hkv, L, T = 10, 1, 1232, 16
-    gctx = [2125, 2455, 2319, 2429]
+    # paged partial: rank 0's block of the lanes at the main path's last
+    # step (each prompt and its decode steps), all 10 query heads over 1
+    # KV head
+    H, Hkv, L, T = 10, 1, rg["block_len"], 16
+    gctx = [n + steps for n in rg["lens"]]
+    B = len(gctx)
     local = [min(c, L) for c in gctx]
-    qd, kp, vp, bt, _ = paged_inputs(torch, g, 4, H, Hkv, dh, [L] * 4, bf16,
+    qd, kp, vp, bt, _ = paged_inputs(torch, g, B, H, Hkv, dh, [L] * B, bf16,
                                      T=T, mp=L // T)
     cl = torch.tensor(gctx, dtype=torch.int32, device="cuda")
     errs = []
     for off in (0, L):
-        koff = torch.full((4,), off, dtype=torch.int32, device="cuda")
+        koff = torch.full((B,), off, dtype=torch.int32, device="cuda")
         o_k, l_k = paged_attention_partial(qd, kp, vp, bt, cl, koff,
                                            window=W)
         o_r, l_r = reference_paged_attention_partial(qd, kp, vp, bt, cl,
@@ -4612,14 +4614,15 @@ def mshard_family_rows(torch, seed: int, launches: dict) -> list:
               f"{W}, block offset {off}: o {r1:.3g}, lse {r2:.3g} of "
               "TOL_FAMILIES")
         errs.append(float((o_k.float() - o_r.float()).abs().max()))
-    koff = torch.zeros(4, dtype=torch.int32, device="cuda")
+    koff = torch.zeros(B, dtype=torch.int32, device="cuda")
     n_live = sum(min(c, L) - max(c - W, 0) for c in gctx)
-    b_ms, b_by = bound(4.0 * H * dh * n_live,
-                       2.0 * 4 * H * dh + 2.0 * 2 * n_live * Hkv * dh
-                       + 4.0 * 4 * H * (dh + 1) + 4.0 * (bt.numel() + 8))
+    b_ms, b_by = mshard_bound(4.0 * H * dh * n_live,
+                              2.0 * B * H * dh + 2.0 * 2 * n_live * Hkv * dh
+                              + 4.0 * B * H * (dh + 1)
+                              + 4.0 * (bt.numel() + 2 * B))
     pages = bt.long()
-    dk = kp[pages].reshape(4, L, Hkv, dh).transpose(1, 2)
-    dv = vp[pages].reshape(4, L, Hkv, dh).transpose(1, 2)
+    dk = kp[pages].reshape(B, L, Hkv, dh).transpose(1, 2)
+    dv = vp[pages].reshape(B, L, Hkv, dh).transpose(1, 2)
     j = torch.arange(L, device="cuda")[None, :]
     c = cl[:, None].long()
     lmask = (j < c) & (j >= c - W)
@@ -4638,16 +4641,17 @@ def mshard_family_rows(torch, seed: int, launches: dict) -> list:
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             qd[:, :, None], dk, dv, attn_mask=lmask[:, None, None, :],
             enable_gqa=True)),
-        "shape": f"B=4 H={H} H_kv={Hkv} dh={dh} T={T} window={W}, rank 0's "
-                 f"block of {L} positions of 2,464 (recurrentgemma-2b on "
-                 f"1x2, the query heads gathered), global ctx={gctx} "
+        "shape": f"B={B} H={H} H_kv={Hkv} dh={dh} T={T} window={W}, rank "
+                 f"0's block of {L} positions of {rg['max_seq']} "
+                 f"(recurrentgemma-2b on 1x2, the query heads gathered), "
+                 f"global ctx={gctx} "
                  f"(local {local}) bf16; rank 1's block checked too"})
     return rows
 
 
-def phase_model_shard(torch, np, seed: int, card: str) -> list:
+def phase_model_shard(torch, np, seed: int, card: str) -> tuple:
     """Model sharding on the card (see the module docstring); returns
-    the kernel JSON's rows at its new shapes."""
+    the kernel JSON's rows at its new shapes and (f)'s seconds."""
     from repro_torch.configs import get_config
     from repro_torch.core import shard_plane as sp
     from repro_torch.launch import dryrun, roofline
@@ -4798,12 +4802,13 @@ def phase_model_shard(torch, np, seed: int, card: str) -> list:
                           seed, timeout=MSHARD_TIMEOUT_S)
     family_launches = mshard_family_check(np, res, card)
     rows = mshard_kernel_rows(torch, seed, launches)
-    rows += mshard_family_rows(torch, seed, family_launches)
-    PHASE_SECONDS["model_shard (f)"] = time.perf_counter() - t
-    print(f"model_shard (f): launch and kernel rows "
-          f"{PHASE_SECONDS['model_shard (f)']:.1f} s")
+    arch, _, steps, _, _ = MSHARD_FAMILIES[0]
+    rows += mshard_family_rows(torch, seed, family_launches, res[0][arch],
+                               steps)
+    f_seconds = time.perf_counter() - t
+    print(f"model_shard (f): launch and kernel rows {f_seconds:.1f} s")
     print(f"model_shard: phase {time.perf_counter() - t_phase:.1f} s")
-    return rows
+    return rows, f_seconds
 
 
 # -- kernel report ----------------------------------------------------------------
@@ -4974,13 +4979,14 @@ def main(argv=None) -> int:
             row["launches_train_phase"] = train_launches[row["name"]]
         phase = "model_shard"
         t_shard = time.perf_counter()
-        report.extend(phase_model_shard(torch, np, args.seed, card))
+        rows, f_seconds = phase_model_shard(torch, np, args.seed, card)
+        report.extend(rows)
         card = card_line()
         now = time.perf_counter()
         print(f"seconds: {now - t0:.1f} in all, of them families "
               f"{t_train - t_families:.1f}, train {t_shard - t_train:.1f}, "
               f"model_shard {now - t_shard:.1f} (its (f) "
-              f"{PHASE_SECONDS['model_shard (f)']:.1f})")
+              f"{f_seconds:.1f})")
     except Exception:                     # noqa: BLE001 — report and fail
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)

@@ -78,10 +78,10 @@ def rglru_state(batch: int, cfg, device, dtype=torch.float32,
     }
 
 
-def split(params) -> bool:
-    """Whether these are a tp rank's block of the channels (``w_r``'s
-    columns fewer than its rows)."""
-    return params["w_r"].shape[1] < params["w_r"].shape[0]
+def split(params, rt) -> bool:
+    """Whether ``rt`` splits the channels over tp (dr is ``w_r``'s rows,
+    which no rule splits), so that the params are a rank's block."""
+    return rt.tp_splits(params["w_r"].shape[0])
 
 
 def gather_dr(rt, x: torch.Tensor) -> torch.Tensor:
@@ -93,7 +93,7 @@ def _gates(params, x: torch.Tensor, rt=LOCAL):
     """x (..., dr) f32 → (a, β·i·x) of the linear recurrence
     h_t = a·h + b; x a tp rank's channel block when the params are
     (the gate products then read all channels)."""
-    xw = gather_dr(rt, x) if split(params) else x
+    xw = gather_dr(rt, x) if split(params, rt) else x
     r = torch.sigmoid(xw @ params["w_r"] + params["b_r"])
     i = torch.sigmoid(xw @ params["w_i"] + params["b_i"])
     log_a = -_C_EXP * r * softplus(params["lambda"])
@@ -145,7 +145,7 @@ def _branches(params, x: torch.Tensor, rt):
     """The normed input's two branches (B,S,dr) in f32: under a channel
     split, this rank's columns (the input replicated into tp work)."""
     y = rmsnorm(params["ln"], x)
-    if split(params):
+    if split(params, rt):
         y = rt.replicate_tp(y)
     return (y @ params["w_a"]).float(), (y @ params["w_b"]).float()
 
@@ -153,7 +153,7 @@ def _branches(params, x: torch.Tensor, rt):
 def _down(params, merged: torch.Tensor, rt) -> torch.Tensor:
     """merged · w_down; under a channel split the ranks' float32
     partials summed over tp and rounded once."""
-    if split(params):
+    if split(params, rt):
         return rt.reduce_tp(partial_product(merged, params["w_down"])).to(
             merged.dtype)
     return merged @ params["w_down"]

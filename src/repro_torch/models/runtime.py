@@ -70,6 +70,12 @@ class Runtime:
     def tp_index(self) -> int:
         return self.mesh.axis_index(self.tp_axis) if self.sharded else 0
 
+    def tp_splits(self, n: int) -> bool:
+        """Whether the sharding rules split a dim of ``n`` over tp (they
+        split a dim where tp divides it), so that the model code runs
+        this rank's block of it; no mesh: False."""
+        return self.sharded and n % self.tp_size == 0
+
     def reduce_tp(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of the tp ranks' partial ``x`` (no mesh: ``x``)."""
         if not self.sharded:

@@ -111,7 +111,7 @@ def mlstm_sequence(params, x_inner: torch.Tensor, state: dict, rt=LOCAL
     B, S, m = x_inner.shape
     _, H, dh = params["wq"].shape
     xf = x_inner.float()
-    if m < H * dh:
+    if rt.tp_splits(H * dh):
         prods = [partial_product(x_inner, params[w].reshape(m, H * dh))
                  for w in ("wq", "wk", "wv")]
         prods += [xf @ params["w_i"], xf @ params["w_f"]]
@@ -149,7 +149,7 @@ def mlstm_block(params, x: torch.Tensor, state: dict, rt=LOCAL
     down-proj → residual."""
     y = rmsnorm(params["ln"], x)
     m = params["w_up"].shape[1]
-    split = m < params["out_ln"].shape[0]
+    split = rt.tp_splits(params["out_ln"].shape[0])   # inner, whole
     if split:
         y = rt.replicate_tp(y)
     up = y @ params["w_up"]
@@ -242,7 +242,7 @@ def slstm_block(params, x: torch.Tensor, state: dict, rt=LOCAL
     m = params["w_z"].shape[0]
     inputs = {g: (y @ params[f"w_{g}"].float().reshape(d, -1))
               .view(B, S, *params[f"w_{g}"].shape[1:]) for g in ("i", "f")}
-    if m < d:                          # w_z, w_o split on d over tp
+    if rt.tp_splits(d):                # w_z, w_o split on d over tp
         ys = _block_of(rt, y, m)
         zo = rt.reduce_tp(torch.cat([ys @ params[f"w_{g}"].float().reshape(
             m, -1) for g in ("z", "o")], dim=-1))
@@ -263,7 +263,7 @@ def slstm_block(params, x: torch.Tensor, state: dict, rt=LOCAL
     a, b = (y2 @ params["w_ff_up"]).chunk(2, dim=-1)
     hff = F.gelu(a.float(), approximate="tanh").to(x.dtype) * b
     m = params["w_ff_down"].shape[0]
-    if m < hff.shape[-1]:              # w_ff_down's rows split over tp
+    if rt.tp_splits(hff.shape[-1]):    # w_ff_down's rows split over tp
         return x + rt.reduce_tp(partial_product(
             _block_of(rt, hff, m), params["w_ff_down"])).to(x.dtype), state
     return x + hff @ params["w_ff_down"], state

@@ -163,7 +163,7 @@ def dense_mlp(params, y: torch.Tensor, cfg: ArchConfig,
     """The dense MLP on the normed y; under a mesh whose tp splits d_ff,
     w_gate/w_up column- and w_down row-parallel, the float32 partials
     summed over tp."""
-    if rt.sharded and cfg.d_ff % rt.tp_size == 0:
+    if rt.tp_splits(cfg.d_ff):
         return rt.reduce_tp(mlp(params, rt.replicate_tp(y), cfg.mlp_kind,
                                 partial=True)).to(y.dtype)
     return mlp(params, y, cfg.mlp_kind)
@@ -198,13 +198,15 @@ class RecurrentBlock(nn.Module):
                  else ssm_lib.slstm_block)
         return block(self.cell, x, state, rt)
 
-    def fresh_state(self, batch: int, cfg: ArchConfig,
-                    device) -> dict[str, torch.Tensor]:
-        """A new sequence's state for this layer's (block of the)
-        weights."""
+    def fresh_state(self, batch: int, cfg: ArchConfig, device,
+                    rt: Runtime = LOCAL) -> dict[str, torch.Tensor]:
+        """A new sequence's state: under ``rt``, for its block of the
+        RG-LRU channels."""
         if self.kind == "rglru":
-            return rglru_lib.rglru_state(batch, cfg, device,
-                                         width=self.rec["w_a"].shape[1])
+            dr = cfg.rnn_width or cfg.d_model
+            return rglru_lib.rglru_state(
+                batch, cfg, device,
+                width=dr // rt.tp_size if rt.tp_splits(dr) else dr)
         return _STATE[self.kind](batch, cfg, device)
 
 
@@ -560,7 +562,7 @@ def _train_layer(layer: nn.Module, x: torch.Tensor, cfg: ArchConfig,
     if layer.kind in ATTN_KINDS:
         return layer(x, cfg, lambda p, y: attn.attention_block(
             p, y, cfg, layer.kind, positions, rt), rt)
-    return layer(x, cfg, layer.fresh_state(x.shape[0], cfg, x.device),
+    return layer(x, cfg, layer.fresh_state(x.shape[0], cfg, x.device, rt),
                  False, rt)[0]
 
 

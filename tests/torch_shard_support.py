@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import Runtime, build_model, params_from_jax
-from repro_torch.tree import leaves_with_paths, stacked
+from repro_torch.tree import key_of, leaves_with_paths, stacked
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -109,34 +109,43 @@ def leaves(tree) -> list:
             leaves_with_paths(tree)]
 
 
+def leaf_keys(tree) -> list:
+    """The keys of :func:`leaves`' leaves, in the same order."""
+    return [key_of(path) for path, _ in leaves_with_paths(tree)]
+
+
 def assert_update_matches(got: dict, want: dict, init: list,
-                          mu_share: float = MU_SHARE,
+                          mu_share: float = MU_SHARE, keys: list = (),
+                          frozen: frozenset = frozenset(),
                           noise: frozenset = frozenset()) -> None:
     """The new params within 1e-5; each leaf's update within
     ``STEP_SHARE`` of its norm and its first moment within ``mu_share``
-    of its largest element.  A leaf whose ``want`` update rounds away
-    (under half an ulp of every element: the RG-LRU's Λ, whose
-    gradients are ~1e-9) must keep its params bit for bit.  The leaves
-    numbered in ``noise`` — whose gradient the one-device step itself
-    does not reproduce when only its order of summation changes — are
-    held by the params bound alone."""
+    of its largest element.  ``keys`` name the leaves (as
+    :func:`leaf_keys`).  A leaf named in ``frozen`` must have an update
+    that rounds away in ``want`` (under half an ulp of every element:
+    the RG-LRU's Λ, whose gradients are ~1e-9) and keep its params bit
+    for bit in ``got``.  The leaves named in ``noise`` (whose gradient
+    the one-device step itself does not reproduce when only its order
+    of summation changes) are held by the params bound alone.  Every
+    other leaf must move."""
     assert len(got["leaves"]) == len(want["leaves"]) == len(init)
-    moved = 0
-    for i, (a, b, p0) in enumerate(zip(got["leaves"], want["leaves"],
-                                       init)):
+    keys = list(keys) or [None] * len(init)
+    assert len(keys) == len(init)
+    assert set(frozen) | set(noise) <= set(keys)
+    for key, a, b, p0 in zip(keys, got["leaves"], want["leaves"], init):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
         step = b - p0
-        if i in noise:
+        if key in noise:
             continue
-        if not np.abs(step).max() > 0:
+        if key in frozen:
+            assert not np.abs(step).any(), key
             np.testing.assert_array_equal(a, p0)
             continue
-        moved += 1
+        assert np.abs(step).max() > 0, key
         assert (np.linalg.norm((a - p0) - step)
-                <= STEP_SHARE * np.linalg.norm(step))
-    assert moved > len(init) // 2
+                <= STEP_SHARE * np.linalg.norm(step)), key
     assert len(got["mu"]) == len(want["mu"])
-    for i, (a, b) in enumerate(zip(got["mu"], want["mu"])):
-        if i not in noise:
+    for key, a, b in zip(keys, got["mu"], want["mu"]):
+        if key not in noise:
             np.testing.assert_allclose(a, b, rtol=0,
                                        atol=mu_share * np.abs(b).max())
