@@ -10,7 +10,18 @@ each reported on its own line:
 1. ``build``   — every CUDA kernel of the serve path built by ``nvcc``
    for sm_90a from ``src/repro_torch/kernels/csrc`` (one process per
    source, in parallel), and the card's name and power limit;
-2. ``kernels`` — each kernel, on each of its routes, against its plain
+2. ``analysis`` — the port's static analyzer, ``python -m
+   repro_torch.analysis --strict`` over ``src/repro_torch`` (exit 0, its
+   report in ``build/ANALYSIS_report.json``), then its runtime
+   cross-check ``assert_no_rebuild`` around ten gateway quanta of 1 to
+   10,000 requests on a 4-shard pool on the card, entitlements churned
+   within the store's capacity before each: no kernel built, no
+   whole-mirror upload, ``admit_quantum`` launches by route as the
+   quanta's padded widths predict, and every admit bit and deny reason
+   (a denying ``rounds`` quantum among them) equal to the same requests
+   replayed one by one through ``Gateway.handle`` on a CPU pool; a
+   growth past the store's capacity inside the check must raise;
+3. ``kernels`` — each kernel, on each of its routes, against its plain
    PyTorch version on the card: flash on the tensor-core route (bf16,
    dh 64 and 128) and the scalar route (float32, bf16 at dh 96, and bf16
    at dh 128 forced), over prompt lengths on both sides of the 64-row
@@ -18,9 +29,9 @@ each reported on its own line:
    (split-K, and the serial baseline in bf16) over contexts on both
    sides of its 64-token splits, empty to full, mixed, and with a whole
    split of -1 pages;
-3. ``control`` — the control tick on the card against the same tick on
+4. ``control`` — the control tick on the card against the same tick on
    the CPU for a seeded 4096-row state;
-4. ``quantum`` — the batched admission path: the ``admit_quantum``
+5. ``quantum`` — the batched admission path: the ``admit_quantum``
    kernel's default route and the first port's serial kernel against
    the plain version (decisions identical, not within a tolerance) on
    four seeded quanta of 65,536 requests over 4,096 entitlements (one
@@ -34,7 +45,7 @@ each reported on its own line:
    Experiments 1 and 2 and the multi-pool routing scenario (quantum and
    scalar admission) through the port's simulators on the card against
    the CPU, with the kernel's launches counted by route on that path;
-5. ``planner`` — the fleet planner, the telemetry plane and the chaos
+6. ``planner`` — the fleet planner, the telemetry plane and the chaos
    harness: ``plan_fleet`` on the card against the CPU at 8, 64 and 512
    seeded pools (``demand_ewma`` 0.7; decisions identical, EWMA 0 ulps)
    and one ``FleetPlanner.plan`` timed on each device; Experiment 3
@@ -45,7 +56,7 @@ each reported on its own line:
    invariant checker and its three-mode replay, on the card against
    the CPU, with the kernel's denials; ``admit_quantum`` launches
    counted by route in each part;
-6. ``shard``   — the sharded control plane (``core.shard_plane``), its
+7. ``shard``   — the sharded control plane (``core.shard_plane``), its
    ranks local processes of a gloo group that all use the one card:
    ``benchmarks/shard_scale.py``'s cells (1,048,576, 4,194,304 and
    16,777,216 rows on 1, 2, 4 and 8 ranks, one launch of ranks a size)
@@ -61,16 +72,16 @@ each reported on its own line:
    ms of a 65,536-entitlement pool, flat and ``shards=8``; and the
    ``churn_migration`` chaos scenario with ``shards: 4`` on every site
    (0 violations, the card's trace equal to the CPU's);
-7. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
+8. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
    full-depth Qwen3-8B (bf16, random init from ``--seed``) serving a
    guaranteed and a spot tenant; every flash launch on this path must
    take the tensor-core route and every paged launch the split kernel,
    and a reduced model served on the card must give the same greedy
    tokens as on the CPU;
-8. ``profile`` — a decode step and a prefill of 8 lanes on the same
+9. ``profile`` — a decode step and a prefill of 8 lanes on the same
    model, on the host clock and under ``torch.profiler`` (device time
    by kernel);
-9. ``families`` — after the kernel report, with Qwen3-8B freed: the
+10. ``families`` — after the kernel report, with Qwen3-8B freed: the
    paged kernel at the families' shapes (gemma2-9b's dh 256 / G 2 with
    window 4096 and softcap 50 over contexts 0-8,192, recurrentgemma-2b's
    dh 256 / G 10 with window 2048, G 16, G 8, internvl2-2b's G 2 and
@@ -92,7 +103,7 @@ each reported on its own line:
    flash launches counted by call); and every configuration the engine
    serves, reduced in float32, with identical greedy tokens on the card
    and the CPU, and reduced whisper-small at the model level;
-10. ``train`` — last, after the families (every served model freed):
+11. ``train`` — last, after the families (every served model freed):
    (a) full-width, full-depth tinyllama-1.1b (bf16 params, float32
    moments) trained 8 steps on the launcher's batch of 8 × 256 tokens
    through ``TrainLoop``, with ms a step, tokens/s, peak memory and one
@@ -112,7 +123,7 @@ each reported on its own line:
    (e) reduced float32 tinyllama-1.1b trained 8 steps on the card and on
    the CPU, and one train step of each reduced family of
    ``tests/test_torch_train_families.py`` on both;
-11. ``model_shard`` — last: model sharding, its ranks local gloo
+12. ``model_shard`` — last: model sharding, its ranks local gloo
    processes that all use the one card (the collectives staged through
    the host): (a) full-width, full-depth Qwen3-8B on a 1×2 mesh
    (head-sharded KV): the first 8 of the serve phase's prompts
@@ -171,6 +182,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -343,6 +355,180 @@ def phase_build() -> dict:
     card = card_line()
     print(f"card: {card}")
     return {"seconds": secs, "card": card}
+
+
+# -- phase 1b: analysis -------------------------------------------------------
+#: the analysis phase's quantum lengths, on both sides of the walk/rounds
+#: boundary (a padded width of ``WALK_BELOW`` = 256) up to the gateway's
+#: 10,000; a one-request quantum takes the scalar path (no launch)
+ANALYSIS_SIZES = (1, 2, 100, 128, 129, 255, 256, 1000, 4096, 10_000)
+#: entitlements of the analysis pool: its store holds 512 rows, so the
+#: churn (3 out, 3 in before each quantum) stays within capacity
+ANALYSIS_ENTS = 448
+ANALYSIS_CHURN = 3
+
+
+def analysis_add(core, gw, i: int) -> None:
+    """Entitlement ``e{i}`` behind key ``k{i}``: elastic, with a small
+    bucket and 3 slots for every eighth (so long quanta deny)."""
+    tight = i % 8 == 0
+    gw.pool.add_entitlement(core.EntitlementSpec(
+        name=f"e{i}", tenant_id=f"t{i}", pool="p",
+        qos=core.QoS(core.ServiceClass.ELASTIC, 1000.0),
+        baseline=core.Resources(400.0 if tight else 1e6, 0.0,
+                                3.0 if tight else 1e3)))
+    gw.register_key(f"k{i}", f"e{i}", pool="p")
+
+
+def analysis_gateway(core, Gateway, dev: str):
+    """A pool of ``ANALYSIS_ENTS`` entitlements on a 4-shard store (churn
+    re-uploads one block of the mirror, never the whole) on ``dev``."""
+    pool = core.TokenPool(core.PoolSpec(
+        name="p", model="m", scaling=core.ScalingBounds(1, 1),
+        per_replica=core.Resources(1e9, 1e15, 1e6), shards=4), device=dev)
+    gw = Gateway(pool)
+    for i in range(ANALYSIS_ENTS):
+        analysis_add(core, gw, i)
+    return gw
+
+
+def analysis_requests(QuantumRequest, gw, m: int, tag: str) -> list:
+    """``m`` requests over the live keys, every other one on a key with
+    a small bucket."""
+    keys = sorted(f"k{n[1:]}" for n in gw.pool.entitlements)
+    tight = [k for k in keys if int(k[1:]) % 8 == 0]
+    return [QuantumRequest(tight[i // 2 % len(tight)] if i % 2 == 0
+                           else keys[i % len(keys)], f"{tag}{i}", 64, 64)
+            for i in range(m)]
+
+
+def phase_analysis(torch, np, seed: int, card: str) -> dict:
+    """(a) the port's static analyzer, strict, over ``src/repro_torch``;
+    (b) its runtime cross-check on a pool on the card: across a loop of
+    churned gateway quanta no kernel is built and the store's mirror is
+    never re-uploaded whole, the launches by route are what the quantum
+    lengths predict, and every decision equals the same requests
+    replayed one by one through ``Gateway.handle`` on a CPU pool; a
+    growth past the store's capacity inside the check must make it
+    raise.  Returns the ``admit_quantum`` launches by route."""
+    import repro_torch.core as core
+    from repro_torch.analysis.runtime import assert_no_rebuild
+    from repro_torch.core.control_plane import quantum_width
+    from repro_torch.gateway import Gateway, QuantumRequest
+    from repro_torch.kernels.admit_quantum.admit_quantum import WALK_BELOW
+
+    # (a) the strict scan, as CI runs it
+    t0 = time.perf_counter()
+    report_path = ROOT / "build" / "ANALYSIS_report.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict",
+         "--report", str(report_path), "src/repro_torch"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    scan_s = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"analysis: the strict scan exited {res.returncode}:\n"
+          f"{res.stdout[-4000:]}{res.stderr[-4000:]}")
+    blob = json.loads(report_path.read_text())
+    check(blob["unwaived_total"] == 0 and len(blob["rules"]) == 7,
+          f"analysis: report {blob['rules']}, "
+          f"{blob['unwaived_total']} unwaived")
+    by_rule = {r: (v["findings"], v["waived"])
+               for r, v in sorted(blob["rules"].items())}
+    print(f"analysis scan: python -m repro_torch.analysis --strict "
+          f"src/repro_torch exit 0 in {scan_s:.2f} s: "
+          f"{blob['files_scanned']} files, {len(blob['rules'])} rules, "
+          f"findings (all, waived) by rule {by_rule}; report "
+          f"build/ANALYSIS_report.json")
+
+    # (b) the runtime cross-check around churned quanta
+    t1 = time.perf_counter()
+    gws = {dev: analysis_gateway(core, Gateway, dev)
+           for dev in ("cuda", "cpu")}
+    gw, ref = gws["cuda"], gws["cpu"]
+    store = gw.pool.store
+
+    def replay(qs, now):
+        return [ref.handle(q.api_key, q.request_id, q.input_tokens,
+                           q.max_tokens, now,
+                           kv_bytes_per_token=q.kv_bytes_per_token)
+                for q in qs]
+
+    def decisions(out):
+        return [(r.status == 200, r.reason) for r in out]
+
+    warm = analysis_requests(QuantumRequest, gw, 64, "warm")
+    check(decisions(gw.handle_quantum(warm, 0.0))
+          == decisions(replay(warm, 0.0)),
+          "analysis: the warm quantum differs from Gateway.handle")
+    nxt = ANALYSIS_ENTS
+    rows, predicted = [], {"rounds": 0, "walk": 0, "serial": 0}
+    blocks0 = store.block_uploads
+    with assert_no_rebuild(store) as start:
+        for j, m in enumerate(ANALYSIS_SIZES):
+            now = 0.25 * (j + 1)
+            for g in (gw, ref):
+                for name in sorted(g.pool.entitlements)[:ANALYSIS_CHURN]:
+                    g.pool.remove_entitlement(name, now)
+                for k in range(ANALYSIS_CHURN):
+                    analysis_add(core, g, nxt + k)
+            nxt += ANALYSIS_CHURN
+            qs = analysis_requests(QuantumRequest, gw, m, f"a{j}-")
+            out = decisions(gw.handle_quantum(qs, now))
+            bad = [i for i, (a, b) in enumerate(
+                zip(out, decisions(replay(qs, now)))) if a != b]
+            check(not bad, f"analysis: quantum of {m} on the card differs "
+                  f"from Gateway.handle on the CPU at request {bad[:3]}")
+            width = quantum_width(m)
+            route = None if m == 1 else (
+                "walk" if width < WALK_BELOW else "rounds")
+            if route:
+                predicted[route] += 1
+            rows.append((m, width, route, sum(not a for a, _ in out)))
+    launched = start.launched()
+    check(launched["admit_quantum"] == predicted,
+          f"analysis: admit_quantum launches by route "
+          f"{launched['admit_quantum']}, the lengths predict {predicted}")
+    check(not any(n for k in ("flash_attention", "paged_attention")
+                  for n in launched[k].values()),
+          f"analysis: attention launches on the gateway path {launched}")
+    check(store.capacity == 512 and len(gw.pool.entitlements)
+          == ANALYSIS_ENTS, f"analysis: the churn left {store.capacity} "
+          f"rows for {len(gw.pool.entitlements)} entitlements")
+    denying = [r for r in rows if r[2] == "rounds" and r[0] >= 256 and r[3]]
+    check(bool(denying), f"analysis: no denying rounds quantum of >= 256 "
+          f"requests: {rows}")
+    loop_s = time.perf_counter() - t1
+    print(f"analysis runtime: {len(rows)} gateway quanta on a 4-shard pool "
+          f"of {ANALYSIS_ENTS} entitlements (512 rows) on the card, "
+          f"{ANALYSIS_CHURN} entitlements out and {ANALYSIS_CHURN} in before "
+          f"each; (requests, padded width, route, denied) {rows}; inside "
+          f"assert_no_rebuild no kernel built and no whole-mirror upload "
+          f"(full uploads {start.full_uploads[0]} before and after, "
+          f"{store.block_uploads - blocks0} block uploads); admit_quantum "
+          f"launches by route {launched['admit_quantum']} = predicted; "
+          f"every admit bit and deny reason equal to the requests replayed "
+          f"through Gateway.handle on a CPU pool ({len(denying)} denying "
+          f"rounds quanta of >= 256); {loop_s:.2f} s; card {card}")
+
+    # the planted growth must fire the check
+    raised = None
+    try:
+        with assert_no_rebuild(store):
+            for k in range(store.capacity - len(gw.pool.entitlements) + 1):
+                analysis_add(core, gw, nxt + k)
+            gw.handle_quantum(analysis_requests(QuantumRequest, gw, 300,
+                                                "grown-"), 9.0)
+    except AssertionError as e:
+        raised = str(e)
+    check(raised is not None and store.capacity == 1024,
+          f"analysis: a growth to {store.capacity} rows inside "
+          f"assert_no_rebuild did not raise")
+    print(f"analysis planted: growth past 512 rows inside assert_no_rebuild "
+          f"raised as it must: {raised}")
+    return launched["admit_quantum"]
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -4948,12 +5134,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     try:
         card = phase_build()["card"]
+        phase = "analysis"
+        t_analysis = time.perf_counter()
+        analysis_launches = phase_analysis(torch, np, args.seed, card)
+        analysis_s = time.perf_counter() - t_analysis
         phase = "kernels"
         errs = phase_kernels(torch, args.seed)
         phase = "control"
         phase_control(torch, np, args.seed)
         phase = "quantum"
         admit_report = phase_quantum(torch, np, args.seed, card)
+        admit_report["launches_analysis_phase"] = analysis_launches
         phase = "planner"
         admit_report["launches_planner_phase"] = phase_planner(
             torch, np, args.seed, card)
@@ -4983,7 +5174,8 @@ def main(argv=None) -> int:
         report.extend(rows)
         card = card_line()
         now = time.perf_counter()
-        print(f"seconds: {now - t0:.1f} in all, of them families "
+        print(f"seconds: {now - t0:.1f} in all, of them analysis "
+              f"{analysis_s:.1f}, families "
               f"{t_train - t_families:.1f}, train {t_shard - t_train:.1f}, "
               f"model_shard {now - t_shard:.1f} (its (f) "
               f"{f_seconds:.1f})")

@@ -39,6 +39,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core.markers import device_kernel
 from repro_torch.core.types import PriorityCoefficients, ServiceClass
 
 # class codes (row order matters: used for lookups)
@@ -321,6 +322,7 @@ def _tick_impl(state: ControlState, capacity_tps: torch.Tensor,
     return dataclasses.replace(s1, debt=debt), alloc, weights
 
 
+@device_kernel(oracle="repro.core.control_plane.control_tick")
 @torch.no_grad()
 def control_tick(state: ControlState, capacity_tps: torch.Tensor,
                  measured_tps: torch.Tensor, used_kv: torch.Tensor,
@@ -337,6 +339,7 @@ def control_tick(state: ControlState, capacity_tps: torch.Tensor,
                       used_conc, demand_tps, avg_slo_ms, coeff)
 
 
+@device_kernel(oracle="repro.core.control_plane.control_tick_pools")
 @torch.no_grad()
 def control_tick_pools(states: ControlState, capacity_tps: torch.Tensor,
                        measured_tps: torch.Tensor, used_kv: torch.Tensor,

@@ -66,6 +66,7 @@ import torch
 
 from repro_torch.core import control_plane
 from repro_torch.core.autoscaler import ScaleDecision, replicas_for
+from repro_torch.core.markers import device_kernel
 from repro_torch.core.pool import TickRecord, TokenPool
 from repro_torch.core.types import ServiceClass
 
@@ -137,6 +138,7 @@ class FleetPlan:
         default_factory=dict)
 
 
+@device_kernel(oracle="repro.core.fleet.plan_fleet")
 @torch.no_grad()
 def plan_fleet(current: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                per_tps: torch.Tensor, per_kv: torch.Tensor,

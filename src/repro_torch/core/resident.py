@@ -93,7 +93,7 @@ _COLUMNS: dict[str, np.dtype] = {
 #: host-side write to one of these MUST be followed by ``mark_dirty()``
 #: (or adopt the kernel output via ``adopt_device``), else every later
 #: admission kernel reads stale burst/debt.  Enforced statically by the
-#: ``mirror-invalidation`` pass (``python -m repro.analysis``).
+#: ``mirror-invalidation`` pass (``python -m repro_torch.analysis``).
 _MIRRORED = ("class_code", "bound") + _F32_KERNEL
 
 #: qualnames allowed to write mirrored columns WITHOUT a trailing

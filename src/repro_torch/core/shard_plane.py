@@ -58,6 +58,7 @@ from repro_torch.core.control_plane import (
     bucket_width,
     priority_rows,
 )
+from repro_torch.core.markers import device_kernel
 from repro_torch.core.types import PriorityCoefficients
 from repro_torch.core.vectorized import admit_quantum
 
@@ -186,6 +187,7 @@ def gather_rows(mesh: RowMesh, *blocks: torch.Tensor) -> list[np.ndarray]:
 
 # -- the sharded tick ---------------------------------------------------------
 
+@device_kernel(oracle="repro.core.control_plane.control_tick")
 @torch.no_grad()
 def shard_tick(state: ControlState, capacity_tps: torch.Tensor,
                measured_tps: torch.Tensor, used_kv: torch.Tensor,
@@ -230,6 +232,7 @@ def _gather_block(mesh: RowMesh, state: ControlState, bucket, infl, kv,
     return [summed[k].to(c.dtype) for k, c in enumerate(cols)]
 
 
+@device_kernel(oracle="repro.core.vectorized.admit_quantum")
 @torch.no_grad()
 def shard_admit_quantum(arr: ControlState,
                         bucket_level: torch.Tensor,   # f32 [N/S]
@@ -304,6 +307,7 @@ def shard_admit_quantum(arr: ControlState,
 
 # -- the sharded fleet plan ---------------------------------------------------
 
+@device_kernel(oracle="repro.core.fleet.plan_fleet")
 @torch.no_grad()
 def shard_plan_fleet(current: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor, per_tps: torch.Tensor,

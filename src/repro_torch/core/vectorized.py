@@ -40,6 +40,7 @@ from repro_torch.core.control_plane import (
     priority_rows as priority_batch,
     waterfill_rows as waterfill_batch,
 )
+from repro_torch.core.markers import device_kernel
 from repro_torch.core.types import PriorityCoefficients
 from repro_torch.kernels.admit_quantum import admit_scan
 
@@ -47,6 +48,7 @@ from repro_torch.kernels.admit_quantum import admit_scan
 PoolArrays = ControlState
 
 
+@device_kernel(oracle="repro.core.vectorized.tick_batch")
 @torch.no_grad()
 def tick_batch(arr: ControlState, capacity_tps: torch.Tensor,
                measured_tps: torch.Tensor, used_kv: torch.Tensor,
@@ -63,6 +65,7 @@ def tick_batch(arr: ControlState, capacity_tps: torch.Tensor,
                         coeff=coeff)
 
 
+@device_kernel(oracle="repro.core.vectorized.admit_quantum")
 @torch.no_grad()
 def admit_quantum(arr: ControlState,
                   bucket_level: torch.Tensor,    # f32 [N] tokens available

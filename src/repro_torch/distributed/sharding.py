@@ -459,6 +459,7 @@ def shard_params(model, plan: ShardingPlan) -> ShardedParams:
                          cspecs=compute_specs(plan, tree))
 
 
+# repro: allow[oracle-parity] -- model-parallel train step; held to one device in tests/test_torch_model_shard_train.py
 def _gather_dims(mesh: ModelMesh, t: torch.Tensor, spec: Spec,
                  keep: Spec) -> torch.Tensor:
     """``t``, a block under ``spec``, gathered along each dim whose entry
@@ -482,6 +483,7 @@ def gather_params(sp: ShardedParams) -> None:
             d.copy_(_gather_dims(mesh, t, s, k))
 
 
+# repro: allow[oracle-parity] -- model-parallel train step; held to one device in tests/test_torch_model_shard_train.py
 def reduce_grads(sp: ShardedParams, grads: Any) -> Any:
     """Each rank's gradients of the compute view (its share of the loss)
     → the whole loss's gradients of its stored blocks: reduce-scattered
@@ -513,6 +515,7 @@ def reduce_grads(sp: ShardedParams, grads: Any) -> Any:
         return map_leaves(leaf, grads, sp.specs, sp.cspecs)
 
 
+# repro: allow[oracle-parity] -- model-parallel train step; held to one device in tests/test_torch_model_shard_train.py
 def grad_norm(sp: ShardedParams, grads: Any) -> torch.Tensor:
     """The global f32 norm of gradients held as the stored blocks: each
     element counted once (a block replicated over some axes only on the

@@ -271,6 +271,7 @@ def decode_attention(params, x: torch.Tensor, cfg, kind: str,
     return _out(params, o[:, None])
 
 
+# repro: allow[oracle-parity] -- model-parallel decode; held to one device in tests/test_torch_model_shard.py
 def _decode_sharded(q, k, v, cfg, kind, k_pages, v_pages, block_tables,
                     pos, rt, layout) -> torch.Tensor:
     """This rank's (B, h, dh) attention output of a decode step over a

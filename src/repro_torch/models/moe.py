@@ -160,6 +160,7 @@ def moe_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
     return _combine(y, how, T, cfg.experts_per_token)
 
 
+# repro: allow[oracle-parity] -- expert-parallel MLP; held to moe_mlp in tests/test_torch_moe_ep.py
 def moe_mlp_ep(params, x: torch.Tensor, cfg, rt) -> torch.Tensor:
     """This rank's MoE MLP under the mesh of ``rt``: x (T_loc, d), the
     rank's tokens; ``params`` the rank's experts (E_loc, d, f_loc), the

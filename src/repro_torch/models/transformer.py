@@ -540,6 +540,7 @@ def _logits(model: Transformer, x: torch.Tensor,
                    cap=cfg.final_logit_softcap)
 
 
+# repro: allow[oracle-parity] -- model-parallel decode; held to one device in tests/test_torch_model_shard.py
 def greedy(model: Transformer, logits: torch.Tensor,
            rt: Runtime = LOCAL) -> torch.Tensor:
     """The greedy token (int64, logits' shape without the vocab dim): the

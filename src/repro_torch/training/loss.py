@@ -30,6 +30,7 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
     return loss, {"loss": loss, "accuracy": acc, "tokens": total}
 
 
+# repro: allow[oracle-parity] -- model-parallel train step; held to one device in tests/test_torch_model_shard_train.py
 def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, rt,
                        vocab_lo: int) -> torch.Tensor:
     """Each position's f32 negative log-likelihood from this rank's block
@@ -47,6 +48,7 @@ def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, rt,
     return torch.log(sumexp) + m - tgt
 
 
+# repro: allow[oracle-parity] -- model-parallel train step; held to one device in tests/test_torch_model_shard_train.py
 def lm_loss_sharded(logits: torch.Tensor, targets: torch.Tensor,
                     mask: torch.Tensor | None, rt, vocab_lo: int
                     ) -> tuple[torch.Tensor, dict]:

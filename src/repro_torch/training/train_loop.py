@@ -129,6 +129,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     return step_fn
 
 
+# repro: allow[oracle-parity] -- model-parallel train step; held to one device in tests/test_torch_model_shard_train.py
 def _mesh_hooks(model: Model, rt: Runtime) -> _StepHooks:
     """The reference's jitted train step under a mesh, written out: the
     FSDP dims gathered into the compute view, the forward and a

@@ -170,3 +170,53 @@ def test_padding_helpers_match_reference(n):
                    T.tree_sum(torch.from_numpy(v)).numpy(), "tree_sum")
     assert bool(J.tree_any(jnp.asarray(v > 0.5))) == \
         bool(T.tree_any(torch.from_numpy(v > 0.5)))
+
+
+
+def ulps_apart(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest distance in f32 units in the last place."""
+    ia = a.view(np.int32).astype(np.int64)
+    ib = b.view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, np.int64(-2**31) - ia, ia)
+    ib = np.where(ib < 0, np.int64(-2**31) - ib, ib)
+    return int(np.abs(ia - ib).max(initial=0))
+
+
+# tolerance: bit for bit where ℓ̄* is exact (every SLO equal); else 8
+# ulps — ℓ̄* is a plain sum over the rows, and XLA's CPU reduction adds
+# them in another order than torch's (the tick itself is bit for bit,
+# test_control_tick_bitwise), so ℓ̄* and what Eq. 1 derives from it
+# may round apart by an ulp
+@pytest.mark.parametrize("equal_slo", [True, False])
+@pytest.mark.parametrize("n", [8, 100, 4096])
+def test_tick_batch_matches_jax(n, equal_slo):
+    """The legacy entry point (ℓ̄* the live mean over bound rows)
+    against the JAX ``tick_batch`` on the same seeded state."""
+    from repro.core import vectorized as JV
+    from repro_torch.core import vectorized as TV
+    cols, ins, _, _ = seeded(20 + n, n)
+    if equal_slo:
+        cols["slo_ms"] = np.full(n, 1000.0, np.float32)
+    cap = np.float32(300.0 * n)
+    jst = J.ControlState(**{k: jnp.asarray(v) for k, v in cols.items()})
+    jnew, jalloc, jw = JV.tick_batch(jst, jnp.float32(cap),
+                                     *(jnp.asarray(x) for x in ins))
+    tst = T.ControlState(**{k: torch.from_numpy(v.copy())
+                            for k, v in cols.items()})
+    tnew, talloc, tw = TV.tick_batch(tst, torch.tensor(cap),
+                                     *(torch.from_numpy(x) for x in ins))
+    jo = ({k: np.asarray(getattr(jnew, k)) for k in FIELDS},
+          np.asarray(jalloc), np.asarray(jw))
+    to = ({k: getattr(tnew, k).numpy() for k in FIELDS},
+          talloc.numpy(), tw.numpy())
+    if equal_slo:
+        assert_tick_equal(jo, to)
+        return
+    np.testing.assert_array_equal(jo[1] > 0, to[1] > 0)
+    for k in FIELDS:
+        if jo[0][k].dtype == np.float32:
+            assert ulps_apart(jo[0][k], to[0][k]) <= 8, k
+        else:
+            np.testing.assert_array_equal(jo[0][k], to[0][k])
+    assert ulps_apart(jo[1], to[1]) <= 8
+    assert ulps_apart(jo[2], to[2]) <= 8

@@ -33,12 +33,19 @@ def imported_roots(path: Path) -> set[str]:
 
 def test_port_has_the_reference_layout():
     for sub in ("core", "gateway", "serving", "models", "configs",
-                "kernels", "launch", "training", "checkpointing", "data"):
+                "kernels", "launch", "training", "checkpointing", "data",
+                "analysis", "analysis/passes"):
         assert (PORT / sub / "__init__.py").is_file(), sub
     for mod in ("training/loss.py", "training/optimizer.py",
                 "training/grad_compress.py", "training/train_loop.py",
                 "checkpointing/checkpoint.py", "data/pipeline.py",
-                "launch/train.py", "tree.py"):
+                "launch/train.py", "tree.py", "analysis/__main__.py",
+                "analysis/core.py", "analysis/manifest.py",
+                "analysis/runtime.py", "analysis/passes/chaos_api.py",
+                "analysis/passes/dtype.py", "analysis/passes/hotpath.py",
+                "analysis/passes/mirror.py", "analysis/passes/parity.py",
+                "analysis/passes/retrace.py",
+                "analysis/passes/telemetry.py"):
         assert PORT / mod in FILES, mod
     assert (ROOT / "chip_smoke.py").is_file()
 
