@@ -9,7 +9,9 @@ each reported on its own line:
 
 1. ``build``   — every CUDA kernel of the serve path built by ``nvcc``
    for sm_90a from ``src/repro_torch/kernels/csrc`` (one process per
-   source, in parallel), and the card's name and power limit;
+   source, in parallel), the registers and spill bytes of the dh 256
+   tensor-core flash kernel from ``ptxas`` (no spill allowed), and the
+   card's name and power limit;
 2. ``analysis`` — the port's static analyzer, ``python -m
    repro_torch.analysis --strict`` over ``src/repro_torch`` (exit 0, its
    report in ``build/ANALYSIS_report.json``), then its runtime
@@ -23,9 +25,10 @@ each reported on its own line:
    growth past the store's capacity inside the check must raise;
 3. ``kernels`` — each kernel, on each of its routes, against its plain
    PyTorch version on the card: flash on the tensor-core route (bf16,
-   dh 64 and 128) and the scalar route (float32, bf16 at dh 96, and bf16
-   at dh 128 forced), over prompt lengths on both sides of the 64-row
-   tiles, a window that starts inside a key tile and a softcap; paged
+   dh 64, 128 and 256) and the scalar route (float32, bf16 at dh 96, and
+   bf16 at dh 128 and 256 forced), over prompt lengths on both sides of
+   the 64-row tiles, a window that starts inside a key tile and a
+   softcap; paged
    (split-K, and the serial baseline in bf16) over contexts on both
    sides of its 64-token splits, empty to full, mixed, and with a whole
    split of -1 pages;
@@ -337,6 +340,25 @@ def paged_inputs(torch, g, B, H, Hkv, dh, ctxs, dtype, q_dtype=None,
 
 
 # -- phase 1 -------------------------------------------------------------------
+#: the mangled name's part that marks the dh 256 tensor-core flash kernel
+FLASH_DH256_KERNEL = "flash_prefill_wgmma_kernelILi256E"
+
+
+def ptxas_kernel(log: str, name: str) -> tuple[int, int] | None:
+    """(registers a thread, spill bytes stored + loaded) of the first
+    kernel whose mangled name holds ``name`` in an ``nvcc -Xptxas -v``
+    log; None if there is none."""
+    for chunk in log.split("Compiling entry function")[1:]:
+        if name in chunk.split("'")[1]:
+            regs = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", chunk)
+            if regs and spill:
+                return (int(regs.group(1)),
+                        int(spill.group(1)) + int(spill.group(2)))
+    return None
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -352,6 +374,20 @@ def phase_build() -> dict:
           f"arch=compute_90a,code=sm_90a, parallel) in {secs:.2f} s; "
           f"registers per thread {regs}; most spill bytes (stores + loads) "
           f"of one kernel {spills}")
+    if "flash_attention" in build.BUILD_LOG:
+        found = ptxas_kernel(build.BUILD_LOG["flash_attention"][1],
+                             FLASH_DH256_KERNEL)
+        check(found is not None, "build: no ptxas report for "
+                                 f"{FLASH_DH256_KERNEL}")
+        regs256, spill256 = found
+        print(f"build: flash_prefill_wgmma_kernel<256> (bf16 flash at dh "
+              f"256, tensor cores) {regs256} registers a thread, "
+              f"{spill256} spill bytes (stores + loads)")
+        check(spill256 == 0, f"build: the dh 256 flash kernel spills "
+                             f"{spill256} bytes")
+    else:
+        print("build: flash_attention was not rebuilt in this process; "
+              "no ptxas report for its dh 256 kernel")
     card = card_line()
     print(f"card: {card}")
     return {"seconds": secs, "card": card}
@@ -551,13 +587,18 @@ def phase_kernels(torch, seed: int) -> dict:
     flash_cases = [(S, None, None) for S in
                    (1, 3, 37, 63, 64, 65, 128, 130, 300, 512)]
     flash_cases += [(130, 40, None), (300, 64, None), (300, None, 50.0)]
-    # (dtype, head width, route): the tensor-core route at both widths,
-    # the scalar route for float32, for bf16 at a width wgmma does not
-    # take, and forced at the serve path's width
-    routes = [("bfloat16", 128, None), ("bfloat16", 64, None),
-              ("float32", 128, None), ("bfloat16", 96, None),
-              ("bfloat16", 128, "scalar")]
-    for dt, dh, kernel in routes:
+    # (dtype, head width, route asked for, route taken): the tensor-core
+    # route at its three widths, the scalar route for float32, for bf16
+    # at a width wgmma does not take, and forced at the serve path's
+    # width and at dh 256
+    routes = [("bfloat16", 128, None, "wgmma"),
+              ("bfloat16", 64, None, "wgmma"),
+              ("bfloat16", 256, None, "wgmma"),
+              ("float32", 128, None, "scalar"),
+              ("bfloat16", 96, None, "scalar"),
+              ("bfloat16", 128, "scalar", "scalar"),
+              ("bfloat16", 256, "scalar", "scalar")]
+    for dt, dh, kernel, want in routes:
         dtype = getattr(torch, dt)
         errs = []
         before = dict(flash_attention.route_launches)
@@ -578,9 +619,9 @@ def phase_kernels(torch, seed: int) -> dict:
             errs.append(err)
         took = [r for r, n in flash_attention.route_launches.items()
                 if n > before[r]]
-        check(len(took) == 1, f"flash {dt} dh={dh}: routes taken {took}")
+        check(took == [want], f"flash {dt} dh={dh} kernel={kernel}: "
+                              f"routes taken {took}, want {want}")
         if (dt, dh, kernel) == ("bfloat16", 128, None):
-            check(took == ["wgmma"], "flash bf16 dh=128 did not take wgmma")
             worst["flash_prefill"] = max(errs)
         lines.append(f"flash {dt} dh={dh} {took[0]} max|err| "
                      f"{max(errs):.3g} (tol {TOL[dt]}, {len(errs)} cases)")
@@ -2471,7 +2512,8 @@ def family_kernel_checks(torch, seed: int) -> dict:
         else:
             err = hold(out, ref, what)
         lines.append(f"{what} max|err| {err:.3g}")
-    # flash at gemma2-9b's width: scalar route, causal, window, softcap
+    # flash at gemma2-9b's width: tensor-core route, causal, window,
+    # softcap
     before = dict(flash_attention.route_launches)
     for S in (512, 4608):
         q, k, v = (torch.randn(1, S, h, 256, device="cuda", generator=g)
@@ -2505,7 +2547,7 @@ def family_kernel_checks(torch, seed: int) -> dict:
                  f"{errs['flash dh 256 G 10']:.3g}")
     took = [r for r, n in flash_attention.route_launches.items()
             if n > before[r]]
-    check(took == ["scalar"], f"families flash dh 256 took {took}")
+    check(took == ["wgmma"], f"families flash dh 256 took {took}")
     # whisper-small: the encoder's bidirectional attention (S = Sk =
     # 1,500) and the decoder's cross-attention (Sq 1 and 64 over the
     # 1,500 encoder keys), dh 64, G 1; each run again causal, which must
@@ -2708,6 +2750,9 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
     n_attn = sum(k in ATTN_KINDS for k in kinds)
     n_local = kinds.count("local")
     fa_route = fa_mod.route(torch.bfloat16, cfg.head_dim)
+    check(n_attn == 0 or fa_route == "wgmma",
+          f"families {arch}: bf16 flash at dh {cfg.head_dim} routes to "
+          f"{fa_route}, not the tensor cores")
     check(routes["flash"][fa_route] == launches["flash"]
           == len(fin) * n_attn,
           f"families {arch}: flash launches {routes['flash']} for "
@@ -3132,7 +3177,9 @@ def family_small_reference(torch, np, seed: int) -> None:
 def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
     """Kernel JSON rows at the families' shapes: device ms (median of
     30 after an L2 flush; of 10 for the plain versions and at S of
-    2,600 and 4,608), plain version, SDPA and the card's bound."""
+    2,600 and 4,608), plain version, SDPA and the card's bound; at dh
+    256 also the scalar route the tensor-core one replaced
+    (``previous_ms``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
@@ -3190,7 +3237,7 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
                      f"window={window} softcap={cap} bf16; {note}"}
 
     def flash_row(name, H, Hkv, Sq, Sk, dh, causal, window, cap, err,
-                  launches, note, B=1, t=timer):
+                  launches, note, B=1, t=timer, previous=False):
         q = torch.randn(B, Sq, H, dh, device="cuda", generator=g) \
             .to(bf16).transpose(1, 2)
         k, v = (torch.randn(B, Sk, Hkv, dh, device="cuda", generator=g)
@@ -3209,7 +3256,7 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
         o = torch.empty_like(q)
         # SDPA's own causal path where no window needs the mask
         masked = bool(window)
-        return {
+        row = {
             "name": name, "route": "cuda", "source": FLASH_SRC,
             "replaces": FLASH_TPU, "launches": launches,
             "max_abs_err": err,
@@ -3230,6 +3277,12 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
                                             if masked else " is_causal"
                                             if causal else "")
                      + (", no softcap" if cap else "")}
+        if previous:             # the route the tensor cores replaced here
+            row["previous_ms"] = t.ms(lambda: flash_attention(
+                q, k, v, causal=causal, window=window, softcap=cap, out=o,
+                kernel="scalar"))
+            row["previous"] = "scalar route (flash_prefill_bf16)"
+        return row
 
     rg, vl, wh = (served[a] for a in ("recurrentgemma-2b", "internvl2-2b",
                                       "whisper-small"))
@@ -3271,7 +3324,8 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
         "whisper-small's decoder self-attention at the run's contexts "
         "mid-decode"))
 
-    # flash at gemma2-9b's width, scalar route, a short and a long prompt
+    # flash at gemma2-9b's width, a short and a long prompt, beside the
+    # scalar route it replaced
     for S in (512, 4608):
         rows.append(flash_row(
             f"flash_prefill_dh256_s{S}", 16, 8, S, S, 256, True, 4096, 50.0,
@@ -3279,12 +3333,12 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
             gem["flash_by_len"]["long" if S > 512 else "short"],
             "launches: the gemma2-9b serve run's flash launches on prompts "
             "of " + ("4,160-4,608 tokens" if S > 512 else "32-512 tokens"),
-            t=plain_timer if S > 512 else timer))
+            t=plain_timer if S > 512 else timer, previous=True))
     rows.append(flash_row(
         "flash_prefill_dh256_g10_s2600", 10, 1, 2600, 2600, 256, True, 2048,
         None, errs["flash dh 256 G 10"], rg["flash_by_len"]["long"],
         "recurrentgemma-2b's local layers; launches: its serve run's on "
-        "prompts of 2,100-2,600 tokens", t=plain_timer))
+        "prompts of 2,100-2,600 tokens", t=plain_timer, previous=True))
     S = max(vl["prompts"])
     rows.append(flash_row(
         "flash_prefill_g2", 16, 8, S, S, 128, True, None, None,
@@ -4661,6 +4715,9 @@ def mshard_family_check(np, res: list, card: str) -> dict:
     for arch, (count, _, _), steps, n_check, check_steps in MSHARD_FAMILIES:
         cfg = get_config(arch)
         want = mshard_family_launches(cfg, steps, count)
+        check(want["flash"]["scalar"] == 0,
+              f"model_shard (f): {arch}'s bf16 flash at dh {cfg.head_dim} "
+              "routes to the scalar kernel, not the tensor cores")
         for r, x in enumerate(res):
             got = x[arch]
             check(got["counts"] == want,
@@ -4724,8 +4781,9 @@ def mshard_family_rows(torch, seed: int, launches: dict, rg: dict,
     version within TOL_FAMILIES and timed beside SDPA: flash at
     recurrentgemma-2b's 5 local query heads over its one KV head (dh
     256, window 2,048) on one rank of 1×2 at the main path's longest
-    prompt, and the paged kernel's partial route over rank 0's block of
-    the main path's sequence-sharded cache at dh 256 and G 10 (the
+    prompt, beside the scalar route it replaced, and the paged kernel's
+    partial route over rank 0's block of the main path's
+    sequence-sharded cache at dh 256 and G 10 (the
     query heads gathered over tp) at its last step's contexts, the
     window straddling the two ranks' blocks.  ``rg``: rank 0's result of
     recurrentgemma-2b on the main path (its prompts' ``lens``, its
@@ -4758,7 +4816,7 @@ def mshard_family_rows(torch, seed: int, launches: dict, rg: dict,
     rows.append({
         "name": "flash_prefill_rg_tp2", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,
-        "launches": launches["recurrentgemma-2b flash scalar"],
+        "launches": launches["recurrentgemma-2b flash wgmma"],
         "max_abs_err": float((out.float() - reference_attention(
             q, k, v, causal=True, window=W).float()).abs().max()),
         "ms": timer.ms(lambda: flash_attention(q, k, v, causal=True,
@@ -4769,8 +4827,11 @@ def mshard_family_rows(torch, seed: int, launches: dict, rg: dict,
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)),
+        "previous_ms": timer.ms(lambda: flash_attention(
+            q, k, v, causal=True, window=W, kernel="scalar")),
+        "previous": "scalar route (flash_prefill_bf16)",
         "shape": f"B=1 H={H} H_kv={Hkv} S={S} dh={dh} window={W} bf16 "
-                 "causal, scalar route (one rank of recurrentgemma-2b at "
+                 "causal, wgmma route (one rank of recurrentgemma-2b at "
                  "tp 2)"})
 
     # paged partial: rank 0's block of the lanes at the main path's last

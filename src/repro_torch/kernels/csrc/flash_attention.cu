@@ -26,10 +26,10 @@
 //
 // Two routes, chosen by the wrapper on dtype and head width:
 //
-// * flash_prefill_bf16_wgmma — bf16 with dh in {64, 128}, the serve
-//   path's route.  One warpgroup (128 threads) per CTA.  Both products
-//   run on the tensor cores with wgmma: S = Q·Kᵀ as m64n64k16 with Q and
-//   K read from shared memory, O += P·V as m64n{dh}k16 with P rounded to
+// * flash_prefill_bf16_wgmma — bf16 with dh in {64, 128, 256}, the
+//   serve path's route.  One warpgroup (128 threads) per CTA.  Both
+//   products run on the tensor cores with wgmma: S = Q·Kᵀ as m64n64k16
+//   with Q and K read from shared memory, O += P·V with P rounded to
 //   bf16 in registers (the accumulator fragment of S is already the A
 //   fragment of the second product) and V read through the transpose
 //   bit of its descriptor.  The softmax runs on the f32 accumulator
@@ -38,13 +38,35 @@
 //   once; K and V tiles of 64 keys sit in a two-stage ring, filled with
 //   16-byte cp.async copies in the 128-byte-swizzle layout the wgmma
 //   descriptors read, the next tile's copies issued before the current
-//   tile's math.  80 KB of shared memory at dh = 128, so two CTAs fit on
-//   an SM.  The K/V bytes are read once per query head (GQA does not
-//   share them across the group) and from L2 after the first.
+//   tile's math.  The K/V bytes are read once per query head (GQA does
+//   not share them across the group) and from L2 after the first.
+//   By width:
+//   - dh 64 and 128: P·V as one m64n{dh}k16 a k-step; 41 / 81 KB of
+//     shared memory, so two or more CTAs fit on an SM.
+//   - dh 256 (gemma2, recurrentgemma): O is 64 x 256 f32, 128 registers
+//     a thread, and no m64n256 product is issued: each P·V k-step is two
+//     m64n128k16 products into the two 64-register halves of O, the
+//     second reading V two swizzle blocks (128 columns) further on.  P
+//     enters P·V as two bf16 parts, hi = bf16(p) and lo = bf16(p − hi),
+//     each through its own product: one rounding of P (2^-9 relative)
+//     puts the output up to 1.5x past the families' limit (2e-3 +
+//     2e-2·|ref|), the two parts keep it at ~0.3 of it, for half again
+//     the tensor-core work.  Q·Kᵀ runs 16 k-steps over four 128-byte
+//     swizzle blocks.  O, S (32) and P (16 + 16) leave little of the
+//     255 registers a thread may hold: each thread copies one 16-byte
+//     column of a tile and steps a single source address down its rows
+//     (per-row addresses, hoisted out of the tile loop as at dh 64/128,
+//     spilled); the build's `-Xptxas -v` line for this instance gives
+//     the count and its spill bytes, which must be 0.  Q 32 KB + two K
+//     and two V stages of 32 KB = 161 KB of shared memory with the
+//     alignment slack, so one CTA (one warpgroup) sits on an SM and its
+//     softmax does not overlap its own products (two consumer
+//     warpgroups sharing each K/V tile, each branching past the tiles
+//     its rows do not see, measured slower at the models' shapes).
 // * flash_prefill_f32 / flash_prefill_bf16 — the first, scalar kernel:
 //   both products as f32 FMAs out of shared memory, no tensor cores.  It
 //   is the route for float32 (tensor cores would mean TF32, beyond the
-//   2e-5 tolerance) and for bf16 head widths outside {64, 128}.
+//   2e-5 tolerance) and for bf16 head widths outside {64, 128, 256}.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -404,6 +426,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+__device__ __forceinline__ float2 unpack_bf16(uint32_t bits) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bits));
+}
 
 // Issues the copies of rows [row0, row0 + 64) of a (rows x DH) bf16
 // matrix with row stride `ld` into a 64 x DH shared tile at `dst`: DH/64
@@ -416,15 +441,46 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
                                           long long ld, int row0, int rows,
                                           int tid) {
   constexpr int CPR = DH / 8;                   // 16-byte chunks per row
+  if constexpr (DH <= 128) {
 #pragma unroll
-  for (int i = 0; i < BN * CPR / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int r = idx / CPR, c = idx % CPR;
-    const bool in = row0 + r < rows;
-    const __nv_bfloat16* g = src + (in ? row0 + r : 0) * ld + c * 8;
-    cp_async16(dst + (c / 8) * ATOM + r * 128 + (((c % 8) ^ (r % 8)) << 4),
-               g, in);
+    for (int i = 0; i < BN * CPR / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      const int r = idx / CPR, c = idx % CPR;
+      const bool in = row0 + r < rows;
+      const __nv_bfloat16* g = src + (in ? row0 + r : 0) * ld + c * 8;
+      cp_async16(dst + (c / 8) * ATOM + r * 128 +
+                     (((c % 8) ^ (r % 8)) << 4), g, in);
+    }
+  } else {
+    // Each thread keeps one column chunk and walks the rows RPI apart
+    // with one source address: the 16 per-row addresses a tile, which
+    // the compiler hoists out of the caller's loop at dh 64/128, spill
+    // beside the 128 registers of O.
+    constexpr int RPI = THREADS / CPR;          // rows per pass: 4
+    static_assert(RPI == 4, "tile shape");
+    const int c = tid % CPR, r = tid / CPR;
+    // row r + 4i has the swizzle phase of r, flipped by 4 on odd i
+    const uint32_t d = dst + (c / 8) * ATOM + r * 128 +
+                       (((c % 8) ^ (r % 8)) << 4);
+    const int left = rows - row0 - r;           // rows of this thread in
+    unsigned long long g = reinterpret_cast<unsigned long long>(
+        src + (row0 + r) * ld + c * 8);
+    const unsigned long long step = RPI * ld * 2;   // bytes
+#pragma unroll
+    for (int i = 0; i < BN / RPI; ++i) {
+      const bool in = i * RPI < left;
+      cp_async16((d + i * RPI * 128) ^ (((i * RPI) % 8) << 4),
+                 in ? reinterpret_cast<const void*>(g) : src, in);
+      g += step;
+      asm volatile("" : "+l"(g));               // one address, stepped
+    }
   }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
 template <int DH>
@@ -437,7 +493,14 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            Strides os, int causal, int window, float softcap,
                            float scale) {
   constexpr int TILE = BN * DH * 2;             // bytes of a 64-row tile
-  constexpr int NACC = DH / 2;                  // O registers per thread
+  // O in NH column halves of at most 128 (one wgmma N each), NACC f32
+  // registers a thread in each
+  constexpr int NH = DH > 128 ? DH / 128 : 1;
+  constexpr int NACC = DH / 2 / NH;
+  // at dh 256 P goes into P·V as two bf16 parts, hi = bf16(p) and lo =
+  // bf16(p − hi): one bf16 rounding of P (2^-9) exceeds the families'
+  // tolerance over gemma2's 4,096-key rows
+  constexpr bool SPLIT = DH == 256;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle's phase follows address bits 7-9: 1024-byte alignment
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -462,10 +525,14 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = q0 + warp * 16 + lane / 4, r1 = r0 + 8;
   const int cq = 2 * (lane % 4);
 
-  float acc[NACC];
+  float acc[NH][NACC];
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  for (int hf = 0; hf < NH; ++hf) zero(acc[hf]);
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  // the scale, the softcap and the change to log2 units as products
+  // (within an ulp or two of dividing by the softcap)
+  const float scale_cap = softcap > 0.f ? scale / softcap : 0.f;
+  const float cap_log2e = softcap * LOG2E, scale_log2e = scale * LOG2E;
 
   if (n_tiles > 0) {
     load_tile<DH>(sQ, qb, qs.s, q0, S, tid);
@@ -492,8 +559,7 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();                            // Q and K[it] in place
 
     float s[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    zero(s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
@@ -509,14 +575,20 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     // softmax on the fragment, in log2 units
     const bool edge = (causal && kt + BN - 1 > q0) || kt + BN > Sk ||
                       (window > 0 && q0 + BM - 1 - kt >= window);
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = cap_log2e * tanhf(s[i] * scale_cap);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale_log2e;
+    }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[4 * j + e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        x *= LOG2E;
+        float x = s[4 * j + e];
         if (edge) {
           const int kp = kt + 8 * j + cq + (e & 1);
           const int qp = e < 2 ? r0 : r1;
@@ -544,8 +616,9 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     m1 = mn1;
 
     // P in bf16 as the A fragment of P·V: for keys 16kk..16kk+15 the
-    // registers hold (r0, cq), (r1, cq), (r0, cq + 8), (r1, cq + 8)
-    uint32_t pa[4][4];
+    // registers hold (r0, cq), (r1, cq), (r0, cq + 8), (r1, cq + 8);
+    // pl the low parts at dh 256
+    uint32_t pa[4][4], pl[SPLIT ? 4 : 1][4];
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -555,20 +628,29 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       const float p3 = exp2f(s[4 * j + 3] - base1);
       ps0 += p0 + p1;
       ps1 += p2 + p3;
-      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      uint32_t& h01 = pa[j / 2][(j % 2) * 2 + 0];
+      uint32_t& h23 = pa[j / 2][(j % 2) * 2 + 1];
+      h01 = pack_bf16(p0, p1);
+      h23 = pack_bf16(p2, p3);
+      if constexpr (SPLIT) {
+        const float2 f01 = unpack_bf16(h01), f23 = unpack_bf16(h23);
+        pl[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0 - f01.x, p1 - f01.y);
+        pl[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2 - f23.x, p3 - f23.y);
+      }
     }
     // l stays a per-thread partial sum until the end: alpha is the same
     // across the quad
     l0 = l0 * al0 + ps0;
     l1 = l1 * al1 + ps1;
 #pragma unroll
-    for (int j = 0; j < NACC / 4; ++j) {
-      acc[4 * j + 0] *= al0;
-      acc[4 * j + 1] *= al0;
-      acc[4 * j + 2] *= al1;
-      acc[4 * j + 3] *= al1;
-    }
+    for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+      for (int j = 0; j < NACC / 4; ++j) {
+        acc[hf][4 * j + 0] *= al0;
+        acc[hf][4 * j + 1] *= al0;
+        acc[hf][4 * j + 2] *= al1;
+        acc[hf][4 * j + 3] *= al1;
+      }
 
     if (more) cp_async_wait<2>();
     else cp_async_wait<0>();
@@ -578,11 +660,17 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_pv(acc, pa[kk],
-               sw128_desc(sV + st * TILE + kk * 16 * 128, ATOM, 1024));
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf) {  // columns 128·hf on: 2 blocks each
+        const uint64_t dv = sw128_desc(
+            sV + st * TILE + hf * 2 * ATOM + kk * 16 * 128, ATOM, 1024);
+        wgmma_pv(acc[hf], pa[kk], dv);
+        if constexpr (SPLIT) wgmma_pv(acc[hf], pl[kk], dv);
+      }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(acc);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) fence_regs(acc[hf]);
     __syncthreads();                            // stage st free for it + 2
   }
 
@@ -595,16 +683,19 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int j = 0; j < NACC / 4; ++j) {
-    const int col = 8 * j + cq;
-    if (r0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os.s + col) =
-          __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
-    if (r1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * os.s + col) =
-          __floats2bfloat162_rn(acc[4 * j + 2] * inv1,
-                                acc[4 * j + 3] * inv1);
-  }
+  for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+    for (int j = 0; j < NACC / 4; ++j) {
+      const int col = 128 * hf + 8 * j + cq;
+      if (r0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os.s + col) =
+            __floats2bfloat162_rn(acc[hf][4 * j] * inv0,
+                                  acc[hf][4 * j + 1] * inv0);
+      if (r1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r1 * os.s + col) =
+            __floats2bfloat162_rn(acc[hf][4 * j + 2] * inv1,
+                                  acc[hf][4 * j + 3] * inv1);
+    }
 }
 
 template <int DH>
@@ -660,7 +751,7 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k,
                                        scale, stream);
 }
 
-// The tensor-core route: bf16, dh 64 or 128, every pointer and every
+// The tensor-core route: bf16, dh 64, 128 or 256, every pointer and every
 // (batch, seq, head) stride 16-byte aligned (the wrapper checks).
 extern "C" int flash_prefill_bf16_wgmma(const void* q, const void* k,
                                         const void* v, void* o, int B,
@@ -679,6 +770,9 @@ extern "C" int flash_prefill_bf16_wgmma(const void* q, const void* k,
                             causal, window, softcap, scale, s);
   else if (dh == 128)
     err = tc::launch_dh<128>(q, k, v, o, B, H, Hkv, S, Sk, qs, ks, vs, os,
+                             causal, window, softcap, scale, s);
+  else if (dh == 256)
+    err = tc::launch_dh<256>(q, k, v, o, B, H, Hkv, S, Sk, qs, ks, vs, os,
                              causal, window, softcap, scale, s);
   else
     err = cudaErrorInvalidValue;

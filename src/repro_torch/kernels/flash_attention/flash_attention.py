@@ -9,10 +9,16 @@ H100 and how the design answers) has two routes, both one CTA per
 registers and masking a ragged sequence length itself (the TPU kernel
 needs ``S % block == 0``):
 
-* ``"wgmma"`` — bfloat16 with a head width of 64 or 128: both products
-  on the tensor cores (wgmma), P rounded to bf16 before P·V, K/V tiles
-  in a two-stage cp.async ring.  Every pointer and every (batch, seq,
-  head) stride must be 16-byte aligned.
+* ``"wgmma"`` — bfloat16 with a head width of 64, 128 or 256: both
+  products on the tensor cores (wgmma), P rounded to bf16 before P·V,
+  64-key K/V tiles in a two-stage cp.async ring.  Every pointer and
+  every (batch, seq, head) stride must be 16-byte aligned.  At dh 256
+  (gemma2, recurrentgemma) the 64 x 256 f32 output tile takes 128
+  registers a thread, each P·V step is two 64 x 128 products into its
+  two halves, and P enters them as two bf16 parts (hi + lo:
+  :data:`SPLIT_P_HEAD_DIMS`), since one rounding of P misses the
+  families' tolerance over 4,096-key rows.  Q and the two K and V
+  stages take 161 KB of shared memory: one CTA, one warpgroup, an SM.
 * ``"scalar"`` — float32 (the tensor cores would mean TF32, beyond the
   float32 tolerance) and bfloat16 at other head widths: both products
   as f32 FMAs out of shared memory.
@@ -48,9 +54,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                 ctypes.c_float, ctypes.c_void_p])
 _STRIDES = ctypes.c_longlong * 12
 #: head widths of the tensor-core route
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 #: keys per tile of the tensor-core route
 BLOCK_K = 64
+#: head widths at which the tensor-core route feeds P to P·V as two
+#: bf16 parts (hi + lo) instead of one rounding
+SPLIT_P_HEAD_DIMS = (256,)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,8 +105,11 @@ def reference_attention_bf16_p(q: torch.Tensor, k: torch.Tensor,
                                ) -> torch.Tensor:
     """Plain mirror of the tensor-core route's arithmetic: an online
     softmax over 64-key tiles in f32, with each tile's P rounded to
-    bfloat16 before P·V (the row sum l keeps the unrounded P); rows that
-    see no key → 0.  Same layouts as :func:`reference_attention`."""
+    bfloat16 before P·V (the row sum l keeps the unrounded P) — at the
+    widths of :data:`SPLIT_P_HEAD_DIMS` as the sum of two bf16 parts,
+    hi = bf16(P) and lo = bf16(P − hi), each through its own product;
+    rows that see no key → 0.  Same layouts as
+    :func:`reference_attention`."""
     B, H, S, dh = q.shape
     H_kv, Sk = k.shape[1], k.shape[2]
     group = H // H_kv
@@ -120,9 +132,12 @@ def reference_attention_bf16_p(q: torch.Tensor, k: torch.Tensor,
         alpha = torch.exp(m - base)
         p = torch.exp(s - base)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum(
-            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
-            v[:, :, k0:k0 + BLOCK_K])
+        vt = v[:, :, k0:k0 + BLOCK_K]
+        hi = p.to(torch.bfloat16).float()
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", hi, vt)
+        if dh in SPLIT_P_HEAD_DIMS:
+            lo = (p - hi).to(torch.bfloat16).float()
+            acc = acc + torch.einsum("bhqk,bhkd->bhqd", lo, vt)
         m = m_new
     out = torch.where(l > 0, acc / l.clamp_min(1e-30), 0.0)
     return out.to(q.dtype)
@@ -130,7 +145,7 @@ def reference_attention_bf16_p(q: torch.Tensor, k: torch.Tensor,
 
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` for bfloat16 at a head
-    width of 64 or 128, ``"scalar"`` otherwise."""
+    width of 64, 128 or 256, ``"scalar"`` otherwise."""
     if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "scalar"

@@ -20,6 +20,7 @@ Also here: the explicit choice of the flash route, the split size, and
 the build's cache key and entry-point binding.
 """
 import ctypes
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -154,29 +155,46 @@ def test_paged_split_longer_pages():
 
 
 # -- flash prefill: 64-key tiles, P in bf16 --------------------------------------
-def jax_flash_padded(q, k, v, window=None, block=64):
+def jax_flash_padded(q, k, v, window=None, block=64, softcap=None):
     """The Pallas kernel (interpret mode) on inputs zero-padded to a
     multiple of ``block``; causal rows below S do not see the padding."""
     S = q.shape[2]
     q, k, v = (jnp.pad(x, ((0, 0), (0, 0), (0, -S % block), (0, 0)))
                for x in (q, k, v))
-    out = jax_flash(q, k, v, causal=True, window=window, block_q=block,
-                    block_k=block, interpret=True)
+    out = jax_flash(q, k, v, causal=True, window=window, softcap=softcap,
+                    block_q=block, block_k=block, interpret=True)
     return out[:, :, :S]
 
 
-@pytest.mark.parametrize("S,window", [(1, None), (63, None), (64, None),
-                                      (65, None), (130, None), (130, 40)])
-def test_flash_bf16_p_mirror(S, window):
+#: (S, window, dh, heads, kv heads, softcap): dh 64 at ragged lengths;
+#: dh 256 at gemma2's shape (G 2, softcap 50) and recurrentgemma's (G 10)
+FLASH_MIRROR_CASES = [
+    pytest.param(S, window, 64, 4, 2, None, id=f"{S}-{window}")
+    for S, window in ((1, None), (63, None), (64, None), (65, None),
+                      (130, None), (130, 40))
+] + [
+    pytest.param(S, 40, 256, h, hkv, cap, id=f"dh256-{name}-{S}")
+    for name, h, hkv, cap in (("gemma2", 4, 2, 50.0),
+                              ("recurrentgemma", 10, 1, None))
+    for S in (63, 65, 130)
+]
+
+
+@pytest.mark.parametrize("S,window,dh,H,Hkv,softcap", FLASH_MIRROR_CASES)
+def test_flash_bf16_p_mirror(S, window, dh, H, Hkv, softcap):
     """The tensor-core route's arithmetic against the Pallas kernel at
-    ragged lengths around the 64-row tile, and a window (40) that starts
-    inside a key tile."""
-    r = np.random.default_rng(S)
-    arrs = [r.standard_normal((1, h, S, 64)).astype(np.float32)
-            for h in (4, 2, 2)]
+    ragged lengths around the 64-row tile, a window (40) that starts
+    inside a key tile, and at dh 256 with GQA and gemma2's softcap
+    (queries scaled by 4 so that the cap bends the logits)."""
+    r = np.random.default_rng(S if dh == 64 else [S, dh, H])
+    arrs = [r.standard_normal((1, h, S, dh)).astype(np.float32)
+            for h in (H, Hkv, Hkv)]
+    if softcap:
+        arrs[0] *= 4
     (jq, tq), (jk, tk), (jv, tv) = (both(x, "bfloat16") for x in arrs)
-    want = jax_flash_padded(jq, jk, jv, window=window)
-    out = reference_attention_bf16_p(tq, tk, tv, causal=True, window=window)
+    want = jax_flash_padded(jq, jk, jv, window=window, softcap=softcap)
+    out = reference_attention_bf16_p(tq, tk, tv, causal=True, window=window,
+                                     softcap=softcap)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(as_np(out), as_np(want), **TOL["bfloat16"])
 
@@ -192,14 +210,41 @@ def test_flash_bf16_p_mirror_matches_plain_in_f32():
     np.testing.assert_allclose(as_np(out), as_np(ref), **TOL["float32"])
 
 
+def test_flash_split_p_keeps_the_families_margin(monkeypatch):
+    """At dh 256 the tensor-core route feeds P to P·V as two bf16 parts:
+    on gemma2-9b's heads (16/8, softcap 50) its mirror reads under half
+    of the families' limit |err| <= 2e-3 + 2e-2·|ref| against the plain
+    version, where one rounding of P reads more than twice as much."""
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    assert 256 in fa.SPLIT_P_HEAD_DIMS
+    r = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, h, 130, 256))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for h in (16, 8, 8))
+    ref = reference_attention(q, k, v, softcap=50.0).float()
+
+    def reading(out):
+        return float(((out.float() - ref).abs()
+                      / (2e-3 + 2e-2 * ref.abs())).max())
+
+    split = reading(reference_attention_bf16_p(q, k, v, softcap=50.0))
+    monkeypatch.setattr(fa, "SPLIT_P_HEAD_DIMS", ())
+    once = reading(reference_attention_bf16_p(q, k, v, softcap=50.0))
+    assert split <= 0.5
+    assert once > 2 * split
+
+
 @pytest.mark.parametrize("dtype,dh,want", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 96, "scalar"), (torch.bfloat16, 256, "scalar"),
+    (torch.bfloat16, 96, "scalar"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 32, "scalar"),
     (torch.float32, 128, "scalar"), (torch.float32, 64, "scalar"),
 ])
 def test_flash_route(dtype, dh, want):
-    """bf16 at widths 64 and 128 takes the tensor cores; float32 (TF32
-    would break its tolerance) and other widths the scalar kernel."""
+    """bf16 at widths 64, 128 and 256 takes the tensor cores; float32
+    (TF32 would break its tolerance) and other widths the scalar
+    kernel."""
     assert route(dtype, dh) == want
 
 
