@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--requests 16]
+    python3 chip_smoke.py --paged-probe [--parent OLD.cu] [--out ROWS.json]
 
 Run from a checkout (the port is imported from ``src/`` beside this
 file); it needs one CUDA card and the CUDA toolkit (``nvcc``).  Phases,
@@ -28,10 +29,14 @@ each reported on its own line:
    dh 64, 128 and 256) and the scalar route (float32, bf16 at dh 96, and
    bf16 at dh 128 and 256 forced), over prompt lengths on both sides of
    the 64-row tiles, a window that starts inside a key tile and a
-   softcap; paged
-   (split-K, and the serial baseline in bf16) over contexts on both
-   sides of its 64-token splits, empty to full, mixed, and with a whole
-   split of -1 pages;
+   softcap; paged on the route ``route()`` names for each dtype (the
+   ``group`` route for bf16 at G 4, the split route for float32 and for
+   float32 queries over bf16 pages), the split route forced in bf16 and
+   the serial baseline, over contexts on both sides of its 64-token
+   splits, empty to full, mixed, and with a whole split of -1 pages; the
+   split route at dh 16/32/64 (G 2/8/1); the group route at G 8, 10 and
+   16 over dh 64, 128 and 256, and its partial form at G 8 and 10 over
+   two ranks' blocks merged as the ranks merge them;
 4. ``control`` — the control tick on the card against the same tick on
    the CPU for a seeded 4096-row state;
 5. ``quantum`` — the batched admission path: the ``admit_quantum``
@@ -78,7 +83,8 @@ each reported on its own line:
 8. ``serve``   — TokenPool → Gateway → InferenceEngine on full-width,
    full-depth Qwen3-8B (bf16, random init from ``--seed``) serving a
    guaranteed and a spot tenant; every flash launch on this path must
-   take the tensor-core route and every paged launch the split kernel,
+   take the tensor-core route and every paged launch the route
+   ``route()`` names (``group`` at Qwen3-8B's G 4),
    and a reduced model served on the card must give the same greedy
    tokens as on the CPU;
 9. ``profile`` — a decode step and a prefill of 8 lanes on the same
@@ -92,12 +98,14 @@ each reported on its own line:
    dh 256 with window and softcap (S = 512 and 4,608), at dh 256 / G 10
    with window 2048 (S = 2,600), at dh 128 / G 2, and without the
    causal mask at whisper's shapes (S = Sk = 1,500; Sq 64 and 1 over
-   Sk = 1,500) against their plain versions, each windowed case also
-   with its window a chunk off and each non-causal case also causal,
-   which must fail; gemma2-9b, qwen3-moe-30b-a3b, recurrentgemma-2b,
+   Sk = 1,500) against their plain versions, the paged group route also
+   against its own plain mirror and beside the split route forced, each
+   windowed case also with its window a chunk off and each non-causal
+   case also causal, which must fail; gemma2-9b, qwen3-moe-30b-a3b, recurrentgemma-2b,
    xlstm-350m and internvl2-2b served at full width and depth through
    the gateway (every request admitted, flash on the route ``route()``
-   names, every paged launch split and the local layers windowed, no
+   names, every paged launch on the route ``route()`` names and the
+   local layers windowed, no
    plain version on CUDA tensors, the MoE capacity's dropped share, the
    recurrent layers' share of a prefill and a decode step), one line
    per model, and internvl2-2b's image prefix (256 patch embeddings) at
@@ -120,7 +128,8 @@ each reported on its own line:
    checkpoint restored into a fresh model and served: a prefill of 4
    prompts on the flash kernel's ``wgmma`` route (each layer's output
    held to its plain version on the trained activations) and 16 greedy
-   decode steps on the split paged kernel, launches counted by route,
+   decode steps on the paged kernel's ``group`` route, launches counted
+   by route,
    no plain version on CUDA tensors, the logits against
    ``forward_train``'s no further than bf16's own drift from float32;
    (e) reduced float32 tinyllama-1.1b trained 8 steps on the card and on
@@ -132,12 +141,14 @@ each reported on its own line:
    (head-sharded KV): the first 8 of the serve phase's prompts
    prefilled, then 32 greedy decode steps through ``prefill`` /
    ``decode_step`` with the mesh-ful runtime, every flash launch on
-   ``wgmma`` and every paged launch split, no plain version on CUDA
+   ``wgmma`` and every paged launch on the route ``route()`` names
+   (``group``), no plain version on CUDA
    tensors, the decode step's ms and its share in collectives, then a
    pass of the same weights in float32 that holds each layer's sharded
    attention and MLP within 1e-4·max|ref| of rank 0's single-device
    float32 layer on the same inputs; (b) tinyllama-1.1b on 1×8
-   (sequence-sharded KV: every paged launch the partial route) held the
+   (sequence-sharded KV: every paged launch the partial form of the
+   ``group`` route) held the
    same way; (c)
    qwen3-moe-30b-a3b cut to 4 of its 48 layers on 2×2: ``moe_mlp_ep``
    against ``moe_mlp`` at a capacity that drops nothing, and the
@@ -150,10 +161,11 @@ each reported on its own line:
    one launch of 1×2 ranks serving, in turn and each freed before the
    next, full-width, full-depth recurrentgemma-2b (4 prompts of
    2,100–2,600 tokens past its 2,048 window; its one KV head does not
-   split, so every paged launch is the partial route), xlstm-350m (4
+   split, so every paged launch is the partial form of the ``group``
+   route), xlstm-350m (4
    prompts of 32–64 tokens) and whisper-small through its entry points
    (2 prompts over 1,500 frames each; KV heads split, every paged
-   launch split), 8 greedy steps each: launches by route, the same
+   launch split, its G 1), 8 greedy steps each: launches by route, the same
    tokens on every rank, then a float32 pass holding every layer (its
    attention and MLP, RG-LRU block, xLSTM cell, encoder or decoder
    layer) within 1e-4·max|ref − in| of rank 0's single-device float32
@@ -162,7 +174,7 @@ each reported on its own line:
    empty blocks), and (f)'s new shapes (flash at dh 256 with 5 local
    heads over 1 KV head and a window of 2,048; the partial route at dh
    256, G 10, window 2,048) against their plain versions, timed beside
-   SDPA.
+   SDPA and the paged rows beside the split route forced.
 
 Then a ``timer`` line gives each kernel, the kernel it replaced and the
 library call timed once more with the first port's serial timer (host
@@ -176,6 +188,17 @@ row per shape of the ``families`` phase; and the ``model_shard``
 phase's rows, with their launches on that phase's main paths), and the
 last line is the result.  Any failure exits non-zero
 before the result line.
+
+With ``--paged-probe`` it runs the paged decode kernel alone (about a
+minute and a half on an H100, builds included): the registers and spill
+bytes of each group and merge instance, each route against the plain
+version, each route's call and its two passes (by kernel name under
+``torch.profiler``) timed beside SDPA and the bound at the served and
+sharded shapes, and both routes over group sizes 1-16; with ``--parent
+OLD.cu`` (another version of ``paged_attention.cu``, for example ``git
+show <rev>:src/repro_torch/kernels/csrc/paged_attention.cu``) that
+source's split route too, timed in turns with this one's (parent, this,
+this, parent).  Its rows go to ``--out`` (``build/paged_probe.json``).
 """
 from __future__ import annotations
 
@@ -185,6 +208,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -212,7 +236,8 @@ PAGED_TPU = "src/repro/kernels/paged_attention/paged_attention.py:85"
 ADMIT_TPU = "src/repro/core/vectorized.py:70"
 #: the port's kernel functions, as the profiler names them
 PORT_KERNELS = ("flash_prefill_wgmma_kernel", "flash_prefill_kernel",
-                "paged_split_kernel", "paged_merge_kernel",
+                "paged_split_kernel", "paged_group_kernel",
+                "paged_merge_kernel",
                 "paged_decode_kernel", "admit_rounds_kernel",
                 "admit_walk_kernel")
 
@@ -320,6 +345,18 @@ def max_err(torch, out, ref, dtype: str) -> tuple[float, bool]:
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
+def paged_key(pa_mod, torch, dh: int, group: int, partial: bool = False,
+              dtype=None) -> str:
+    """The ``paged_attention.route_launches`` key of a paged call at this
+    head width and group (bf16 unless ``dtype`` says otherwise): the
+    route ``route()`` names, in its partial form where the KV is
+    sequence-sharded."""
+    r = pa_mod.route(dtype or torch.bfloat16, dh, group)
+    return {("split", False): "split", ("split", True): "partial",
+            ("group", False): "group",
+            ("group", True): "group_partial"}[r, partial]
+
+
 def paged_inputs(torch, g, B, H, Hkv, dh, ctxs, dtype, q_dtype=None,
                  T=16, mp=None):
     """Random pages and queries on the card; each lane's table (``mp``
@@ -388,6 +425,21 @@ def phase_build() -> dict:
     else:
         print("build: flash_attention was not rebuilt in this process; "
               "no ptxas report for its dh 256 kernel")
+    if "paged_attention" in build.BUILD_LOG:
+        found = {dh: ptxas_kernel(build.BUILD_LOG["paged_attention"][1],
+                                  f"paged_group_kernelILi{dh}E")
+                 for dh in (64, 128, 256)}
+        check(all(found.values()), f"build: no ptxas report for a "
+                                   f"paged_group_kernel instance: {found}")
+        print("build: paged_group_kernel<dh> (bf16 paged decode, tensor "
+              "cores) registers, spill bytes (stores + loads): "
+              + ", ".join(f"dh {dh} {r}, {sp}"
+                          for dh, (r, sp) in found.items()))
+        check(not any(sp for _, sp in found.values()),
+              f"build: a paged_group_kernel instance spills: {found}")
+    else:
+        print("build: paged_attention was not rebuilt in this process; "
+              "no ptxas report for its group kernels")
     card = card_line()
     print(f"card: {card}")
     return {"seconds": secs, "card": card}
@@ -575,8 +627,17 @@ def phase_kernels(torch, seed: int) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
-        paged_attention_serial, paged_decode_attention,
-        reference_paged_attention)
+        merge_partials, paged_attention, paged_attention_partial,
+        paged_attention_serial, reference_paged_attention)
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
+
+    def took_route(fn):
+        """fn's output and the paged routes that counted a launch."""
+        before = dict(paged_attention.route_launches)
+        out = fn()
+        return out, [r for r, n in paged_attention.route_launches.items()
+                     if n > before[r]]
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst = {"flash_prefill": 0.0, "paged_decode": 0.0}
@@ -632,17 +693,28 @@ def phase_kernels(torch, seed: int) -> dict:
     ctx_sets = [[c] * B for c in (0, 1, 63, 64, 65, 128, 2047)]
     ctx_sets.append([0, 1, 63, 64, 65, 128, 2047, 1000])
     ctx_sets.append([300] * B)
-    for q_dt, kv_dt in (("float32", "float32"), ("bfloat16", "bfloat16"),
-                        ("float32", "bfloat16")):
+    # (q dtype, page dtype, route asked for): every pair on the route
+    # route() names, and bf16 at the serve path's G 4 on the split route
+    # forced too
+    for q_dt, kv_dt, kernel in (("float32", "float32", None),
+                                ("bfloat16", "bfloat16", None),
+                                ("bfloat16", "bfloat16", "split"),
+                                ("float32", "bfloat16", None)):
         qd, kd = getattr(torch, q_dt), getattr(torch, kv_dt)
+        want = kernel or pa_mod.route(qd, dh, H // Hkv)
         errs, serial_errs = [], []
         for i, ctxs in enumerate(ctx_sets):
             q, kp, vp, bt, cl = paged_inputs(torch, g, B, H, Hkv, dh, ctxs,
                                              kd, qd, T, mp)
             if i == len(ctx_sets) - 1:
                 bt[:, 4:8] = -1               # tokens 64-127: one split
-            outs = [paged_decode_attention(q, kp, vp, bt, cl)]
-            if q_dt == kv_dt == "bfloat16":
+            out, took = took_route(lambda: paged_attention(
+                q, kp, vp, bt, cl, kernel=kernel))
+            check(took == [want], f"paged q {q_dt} pages {kv_dt} "
+                                  f"kernel={kernel}: routes {took}, want "
+                                  f"{want}")
+            outs = [out]
+            if q_dt == kv_dt == "bfloat16" and kernel is None:
                 outs.append(paged_attention_serial(q, kp, vp, bt, cl))
             torch.cuda.synchronize()
             ref = reference_paged_attention(q, kp, vp, bt, cl)
@@ -655,12 +727,72 @@ def phase_kernels(torch, seed: int) -> dict:
                 check(not out[zero].float().abs().sum().item(),
                       "paged: context 0 must give zeros")
                 sink.append(err)
-        if q_dt == kv_dt == "bfloat16":
+        if serial_errs:
             worst["paged_decode"] = max(errs)
             lines.append(f"paged serial q {q_dt} / pages {kv_dt} max|err| "
                          f"{max(serial_errs):.3g} ({len(serial_errs)} cases)")
-        lines.append(f"paged split q {q_dt} / pages {kv_dt} max|err| "
+        lines.append(f"paged {want} q {q_dt} / pages {kv_dt} max|err| "
                      f"{max(errs):.3g} ({len(errs)} cases)")
+    # the group route at the groups and widths it was built for (G 8 at
+    # dh 64 and 128, G 10 at dh 256, G 16 at dh 128), on the mixed batch
+    # (context 0 among them) and with a whole chunk of -1 pages; then its
+    # partial form at G 8 and 10 over two ranks' blocks, with and
+    # without a window across them, merged as the ranks merge
+    errs = []
+    for dh_, h, hkv in ((64, 32, 4), (128, 32, 4), (256, 10, 1),
+                        (128, 64, 4)):
+        for i, ctxs in enumerate(ctx_sets[-2:]):
+            q, kp, vp, bt, cl = paged_inputs(torch, g, B, h, hkv, dh_, ctxs,
+                                             torch.bfloat16, T=T, mp=mp)
+            if i:
+                bt[:, 4:8] = -1
+            out, took = took_route(lambda: paged_attention(q, kp, vp, bt,
+                                                           cl))
+            check(took == ["group"], f"paged bf16 dh={dh_} H={h}/{hkv}: "
+                                     f"routes {took}, want group")
+            torch.cuda.synchronize()
+            ref = reference_paged_attention(q, kp, vp, bt, cl)
+            err, ok = max_err(torch, out, ref, "bfloat16")
+            check(ok, f"paged group dh={dh_} H={h}/{hkv} ctx={ctxs}: max "
+                      f"|err| {err} beyond tolerance {TOL['bfloat16']}")
+            zero = [b for b, c in enumerate(ctxs) if c == 0]
+            check(not out[zero].float().abs().sum().item(),
+                  "paged group: context 0 must give zeros")
+            errs.append(err)
+    lines.append(f"paged group bf16 G 8/8/10/16 at dh 64/128/256/128 "
+                 f"max|err| {max(errs):.3g} ({len(errs)} cases)")
+    errs = []
+    half = mp // 2 * T                        # positions of a rank's block
+    gctx = [0, 1, 63, 64, half - 1, half, half + 65, 2 * half - 1]
+    for dh_, h, hkv in ((64, 32, 4), (256, 10, 1)):
+        q, kp, vp, bt, cl = paged_inputs(torch, g, B, h, hkv, dh_, gctx,
+                                         torch.bfloat16, T=T, mp=mp)
+        for window in (None, 700):
+            parts = []
+            for r in range(2):
+                bt_r = bt[:, r * mp // 2:(r + 1) * mp // 2].contiguous()
+                koff = torch.full((B,), r * half, dtype=torch.int32,
+                                  device="cuda")
+                part, took = took_route(lambda: paged_attention_partial(
+                    q, kp, vp, bt_r, cl, koff, window=window))
+                check(took == ["group_partial"],
+                      f"paged partial bf16 dh={dh_} H={h}/{hkv}: routes "
+                      f"{took}, want group_partial")
+                parts.append(part)
+            out = merge_partials(torch.stack([p[0] for p in parts]),
+                                 torch.stack([p[1] for p in parts]))
+            torch.cuda.synchronize()
+            ref = reference_paged_attention(q, kp, vp, bt, cl,
+                                            window=window)
+            err, ok = max_err(torch, out, ref, "bfloat16")
+            check(ok, f"paged group partial dh={dh_} H={h}/{hkv} window "
+                      f"{window}, two ranks merged: max |err| {err}")
+            check(not out[0].abs().sum().item(),
+                  "paged group partial: context 0 must give zeros")
+            errs.append(err)
+    lines.append(f"paged group_partial bf16 G 8/10 at dh 64/256, two "
+                 f"ranks' blocks merged, window none/700 max|err| "
+                 f"{max(errs):.3g} ({len(errs)} cases)")
     # the other head widths and group sizes the split kernel takes
     # (the reduced model of the serve phase has dh 16, G 2)
     ctxs = ctx_sets[-2]
@@ -669,7 +801,10 @@ def phase_kernels(torch, seed: int) -> dict:
         for dh_, (h, hkv) in ((16, (4, 2)), (32, (8, 1)), (64, (4, 4))):
             q, kp, vp, bt, cl = paged_inputs(torch, g, B, h, hkv, dh_, ctxs,
                                              getattr(torch, dt), T=T, mp=mp)
-            out = paged_decode_attention(q, kp, vp, bt, cl)
+            out, took = took_route(lambda: paged_attention(q, kp, vp, bt,
+                                                           cl))
+            check(took == ["split"], f"paged {dt} dh={dh_} H={h}/{hkv}: "
+                                     f"routes {took}, want split")
             torch.cuda.synchronize()
             ref = reference_paged_attention(q, kp, vp, bt, cl)
             err, ok = max_err(torch, out, ref, dt)
@@ -2190,9 +2325,11 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
         t = time.perf_counter()
         reqs = drive(torch, eng, pool, serving, spec, max_tokens)
         wall = time.perf_counter() - t
+        pkey = paged_key(pa_mod, torch, cfg.head_dim,
+                         cfg.num_heads // cfg.num_kv_heads)
         launches = {
             "flash_prefill": fa_mod.flash_attention.route_launches["wgmma"],
-            "paged_decode": pa_mod.paged_attention.route_launches["split"]}
+            "paged_decode": pa_mod.paged_attention.route_launches[pkey]}
         routes = {"flash": dict(fa_mod.flash_attention.route_launches),
                   "paged": dict(pa_mod.paged_attention.route_launches)}
     finally:
@@ -2203,7 +2340,7 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
           f"serve: a kernel never launched on the serve path: {launches}")
     check(launches["flash_prefill"] == fa_mod.flash_attention.launches
           and launches["paged_decode"] == pa_mod.paged_attention.launches,
-          f"serve: a launch took another route than wgmma flash and split "
+          f"serve: a launch took another route than wgmma flash and {pkey} "
           f"paged: {routes}")
     check(not any(plain_on_cuda.values()),
           f"serve: plain versions called on CUDA tensors: {plain_on_cuda}")
@@ -2445,8 +2582,10 @@ def family_kernel_checks(torch, seed: int) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
-        paged_attention_serial, paged_decode_attention,
+        paged_attention, paged_attention_serial, paged_decode_attention,
         reference_paged_attention)
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
     g = torch.Generator(device="cuda").manual_seed(seed + 11)
     errs, lines = {}, []
     sound, wrong = [], []
@@ -2468,12 +2607,18 @@ def family_kernel_checks(torch, seed: int) -> dict:
             wrong.append(ratio)
 
     for label, H, Hkv, dh, window, cap, batches in FAMILY_PAGED_CASES:
-        worst = worst_serial = 0.0
+        worst = worst_serial = worst_split = 0.0
+        want = pa_mod.route(torch.bfloat16, dh, H // Hkv)
         for ctxs in batches:
             q, kp, vp, bt, cl = paged_inputs(torch, g, 8, H, Hkv, dh, ctxs,
                                              torch.bfloat16)
+            before = dict(paged_attention.route_launches)
             out = paged_decode_attention(q, kp, vp, bt, cl, softcap=cap,
                                          window=window)
+            took = [r for r, n in paged_attention.route_launches.items()
+                    if n > before[r]]
+            check(took == [want], f"families paged {label}: routes {took}, "
+                                  f"want {want}")
             torch.cuda.synchronize()
             ref = reference_paged_attention(q, kp, vp, bt, cl, softcap=cap,
                                             window=window)
@@ -2481,6 +2626,17 @@ def family_kernel_checks(torch, seed: int) -> dict:
             zero = [b for b, c in enumerate(ctxs) if c == 0]
             check(not out[zero].float().abs().sum().item(),
                   f"families paged {label}: context 0 must give zeros")
+            if want == "group":
+                # the route's own arithmetic (P as hi + lo), then the
+                # split route, forced
+                hold(out, pa_mod.reference_paged_attention_group(
+                    q, kp, vp, bt, cl, softcap=cap, window=window),
+                    f"paged {label} against the group mirror ctx={ctxs}")
+                out = paged_attention(q, kp, vp, bt, cl, softcap=cap,
+                                      window=window, kernel="split")
+                torch.cuda.synchronize()
+                worst_split = max(worst_split, hold(
+                    out, ref, f"split {label} ctx={ctxs}"))
             if window is None:
                 out = paged_attention_serial(q, kp, vp, bt, cl, softcap=cap)
                 torch.cuda.synchronize()
@@ -2492,7 +2648,9 @@ def family_kernel_checks(torch, seed: int) -> dict:
                     f"paged {label} ctx={ctxs}")
         errs[label] = worst
         lines.append(f"paged {label} (dh {dh}, G {H // Hkv}, window "
-                     f"{window}, softcap {cap}) max|err| {worst:.3g}"
+                     f"{window}, softcap {cap}) {want} max|err| {worst:.3g}"
+                     + (f", split {worst_split:.3g}" if want == "group"
+                        else "")
                      + (f", serial {worst_serial:.3g}" if window is None
                         else ""))
     # the f32 and f32-over-bf16 entries at dh 256 with a window (the
@@ -2757,9 +2915,11 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
           == len(fin) * n_attn,
           f"families {arch}: flash launches {routes['flash']} for "
           f"{len(fin)} prompts x {n_attn} attention layers, route {fa_route}")
-    check(routes["paged"]["split"] == launches["paged"]
+    pkey = paged_key(pa_mod, torch, cfg.head_dim,
+                     cfg.num_heads // cfg.num_kv_heads)
+    check(routes["paged"][pkey] == launches["paged"]
           and (launches["paged"] > 0) == (n_attn > 0),
-          f"families {arch}: paged launches off the split kernel {routes}")
+          f"families {arch}: paged launches off the {pkey} route {routes}")
     check(routes["paged windowed"] * n_attn == launches["paged"] * n_local,
           f"families {arch}: {routes['paged windowed']} windowed of "
           f"{launches['paged']} paged launches; {n_local} of "
@@ -3066,9 +3226,11 @@ def whisper_run(torch, np, seed: int) -> dict:
           == routes["flash"]["wgmma"],
           f"families whisper-small: flash launches {counted_calls}, routes "
           f"{routes['flash']}; want {want}, all wgmma")
-    check(launches["paged"] == routes["paged"]["split"]
-          == WHISPER_STEPS * L,
-          f"families whisper-small: paged launches {routes['paged']}")
+    pkey = paged_key(pa_mod, torch, cfg.head_dim,
+                     cfg.num_heads // cfg.num_kv_heads)
+    check(launches["paged"] == routes["paged"][pkey] == WHISPER_STEPS * L,
+          f"families whisper-small: paged launches {routes['paged']}, all "
+          f"{pkey}")
     check(not any(plain_on_cuda.values()),
           f"families whisper-small: plain versions on CUDA tensors "
           f"{plain_on_cuda}")
@@ -3177,16 +3339,19 @@ def family_small_reference(torch, np, seed: int) -> None:
 def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
     """Kernel JSON rows at the families' shapes: device ms (median of
     30 after an L2 flush; of 10 for the plain versions and at S of
-    2,600 and 4,608), plain version, SDPA and the card's bound; at dh
-    256 also the scalar route the tensor-core one replaced
-    (``previous_ms``)."""
+    2,600 and 4,608), plain version, SDPA and the card's bound; flash at
+    dh 256 also beside the scalar route the tensor-core one replaced
+    (``previous_ms``), paged on the group route beside the split route
+    forced in the same call (``split_ms``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
     route = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention").route
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention, reference_paged_attention)
+        paged_attention, paged_decode_attention, reference_paged_attention)
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
     timer = Timer(torch)
     # the plain versions launch ~50 kernels a call: 10 calls keep the
     # launch queue from filling while the device waits
@@ -3221,7 +3386,8 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
                 < torch.tensor(live, device="cuda")[:, None])
         mask = mask[:, None, None, :]
         qs = q[:, :, None, :]
-        return {
+        which = pa_mod.route(bf16, dh, H // Hkv)
+        row = {
             "name": name, "route": "cuda", "source": PAGED_SRC,
             "replaces": PAGED_TPU, "launches": launches,
             "max_abs_err": errs[label],
@@ -3234,7 +3400,13 @@ def family_kernel_rows(torch, seed: int, errs: dict, served: dict) -> list:
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 qs, dk, dv, attn_mask=mask, enable_gqa=True)),
             "shape": f"B={B} H={H} H_kv={Hkv} dh={dh} T=16 ctx={ctx} "
-                     f"window={window} softcap={cap} bf16; {note}"}
+                     f"window={window} softcap={cap} bf16, {which} route; "
+                     f"{note}"}
+        if which == "group":     # the route the group one replaced here
+            row["split_ms"] = timer.ms(lambda: paged_attention(
+                q, kp, vp, bt, cl, softcap=cap, window=window,
+                kernel="split"))
+        return row
 
     def flash_row(name, H, Hkv, Sq, Sk, dh, causal, window, cap, err,
                   launches, note, B=1, t=timer, previous=False):
@@ -3769,8 +3941,10 @@ def phase_train(torch, np, seed: int, card: str) -> dict:
         attn_mod.flash_attention_bshd, attn_mod.paged_decode_attention = \
             kernels
         fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
+    pkey = paged_key(pa_mod, torch, cfg.head_dim,
+                     cfg.num_heads // cfg.num_kv_heads)
     launches = {"flash_prefill": routes["flash"]["wgmma"],
-                "paged_decode": routes["paged"]["split"]}
+                "paged_decode": routes["paged"][pkey]}
     # forward_train over the prompt and the generated tokens (position
     # S-1 is the prefill's, the last the last decode step's), in bf16
     # and on a float32 copy of the same weights: bf16's own drift
@@ -3794,7 +3968,7 @@ def phase_train(torch, np, seed: int, card: str) -> dict:
           f"{TOL_FAMILIES[0]}·max|v| + {TOL_FAMILIES[1]}·|ref|: flash "
           f"({len(ratios['flash'])} prefill layers, wgmma) largest "
           f"{max(ratios['flash']):.3g} of the limit, paged "
-          f"({len(ratios['paged'])} layer-steps, split) largest "
+          f"({len(ratios['paged'])} layer-steps, {pkey}) largest "
           f"{max(ratios['paged']):.3g}; flash against forward_train's dense "
           f"attention (bf16 softmax weights) {max(ratios['dense']):.3g}; "
           f"end to end (not held: the model is chaotic at the reference's "
@@ -4286,19 +4460,23 @@ def mshard_plain_ms(timer, name: str, fn) -> float:
 def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
     """The kernel JSON's rows at the model_shard phase's new shapes:
     flash at qwen3-8b's 16 local query heads over 4 kv heads (G 4) on 1×2,
-    the split paged kernel at the same heads, and the partial route at
+    the paged kernel at the same heads, and the partial route at
     tinyllama-1.1b's 1×8 (one rank's block of 8 lanes, all 32 heads over
-    4 kv heads), each against its plain version and SDPA on the same
-    inputs; the partial route also on a window that straddles two ranks'
-    blocks and on a rank whose block is empty (o 0, lse −inf)."""
+    4 kv heads), each on the route ``route()`` names against its plain
+    version and SDPA on the same inputs, and beside the split route
+    forced in the same call (``split_ms``); the partial route also on a
+    window that straddles two ranks' blocks and on a rank whose block is
+    empty (o 0, lse −inf)."""
     import math as m
 
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, \
         reference_attention
     from repro_torch.kernels.paged_attention import (
-        paged_attention_partial, paged_decode_attention,
+        paged_attention, paged_attention_partial, paged_decode_attention,
         reference_paged_attention, reference_paged_attention_partial)
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(seed + 11)
     bf16 = torch.bfloat16
@@ -4361,8 +4539,12 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             qd[:, :, None], dk, dv, attn_mask=mask, enable_gqa=True)),
+        "split_ms": timer.ms(lambda: paged_attention(qd, kp, vp, bt, cl,
+                                                     kernel="split")),
         "shape": f"B=8 H={H} H_kv={Hkv} dh={dh} T=16 max_pages={mp} "
-                 f"ctx={ctx} bf16 (one rank of qwen3-8b at tp 2)"})
+                 f"ctx={ctx} bf16 (one rank of qwen3-8b at tp 2), "
+                 f"{pa_mod.route(bf16, dh, H // Hkv)} route; split_ms: the "
+                 "split route forced in the same call"})
 
     # the partial route: rank 3 of tinyllama-1.1b's 1×8 (positions
     # 192-255 of each lane's 512), 8 lanes
@@ -4408,6 +4590,8 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
         "max_abs_err": max(errs),
         "ms": timer.ms(lambda: paged_attention_partial(qd, kp, vp, bt, cl,
                                                        koff)),
+        "split_ms": timer.ms(lambda: paged_attention_partial(
+            qd, kp, vp, bt, cl, koff, kernel="split")),
         "plain_ms": mshard_plain_ms(timer, "paged_partial",
                                     lambda: reference_paged_attention_partial(
                                         qd, kp, vp, bt, cl, koff)),
@@ -4417,8 +4601,10 @@ def mshard_kernel_rows(torch, seed: int, launches: dict) -> list:
             enable_gqa=True)),
         "shape": f"B=8 H={H} H_kv={Hkv} dh={dh} T={T}, one rank's block of "
                  f"{L} positions at offset {off}, global ctx={gctx} "
-                 "(local {local}) bf16; window 40 checked too".format(
-                     local=local)})
+                 "(local {local}) bf16, {route} route (split_ms: the split "
+                 "route forced in the same call); window 40 checked "
+                 "too".format(
+                     local=local, route=pa_mod.route(bf16, dh, H // Hkv))})
     return rows
 
 
@@ -4684,13 +4870,15 @@ def mshard_family_rank(seed: int) -> dict:
 
 def mshard_family_launches(cfg, steps: int, prompts: int) -> dict:
     """The attention kernels' launches a rank of (f) must count on its
-    main path, by route: flash on the route ``route()`` names for the
-    model's bf16 heads, paged split (head-sharded KV) or partial
-    (sequence-sharded)."""
+    main path, by route: flash and paged on the routes ``route()`` names
+    for the model's bf16 heads, paged in its partial form where the KV
+    is sequence-sharded."""
     import torch
     from repro_torch.models import transformer as tf
     route = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention").route
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
     heads_split = cfg.num_kv_heads % MSHARD_FAMILY_MESH[1] == 0
     if cfg.is_encoder_decoder:
         L = cfg.num_layers
@@ -4700,11 +4888,13 @@ def mshard_family_launches(cfg, steps: int, prompts: int) -> dict:
         n_attn = sum(k in tf.ATTN_KINDS for k in tf.layer_kinds(cfg))
         flash, paged = prompts * n_attn, steps * n_attn
     fr = route(torch.bfloat16, cfg.head_dim)
+    pkey = paged_key(pa_mod, torch, cfg.head_dim,
+                     cfg.num_heads // cfg.num_kv_heads,
+                     partial=not heads_split)
     return {"flash": {r: flash if r == fr else 0
                       for r in ("wgmma", "scalar")},
-            "paged": {r: paged if r == ("split" if heads_split
-                                        else "partial") else 0
-                      for r in ("split", "partial", "serial")}}
+            "paged": {r: paged if r == pkey else 0
+                      for r in pa_mod.paged_attention.route_launches}}
 
 
 def mshard_family_check(np, res: list, card: str) -> dict:
@@ -4782,7 +4972,8 @@ def mshard_family_rows(torch, seed: int, launches: dict, rg: dict,
     recurrentgemma-2b's 5 local query heads over its one KV head (dh
     256, window 2,048) on one rank of 1×2 at the main path's longest
     prompt, beside the scalar route it replaced, and the paged kernel's
-    partial route over rank 0's block of the main path's
+    partial form (on the route ``route()`` names, beside the split route
+    forced) over rank 0's block of the main path's
     sequence-sharded cache at dh 256 and G 10 (the
     query heads gathered over tp) at its last step's contexts, the
     window straddling the two ranks' blocks.  ``rg``: rank 0's result of
@@ -4794,6 +4985,8 @@ def mshard_family_rows(torch, seed: int, launches: dict, rg: dict,
         reference_attention
     from repro_torch.kernels.paged_attention import (
         paged_attention_partial, reference_paged_attention_partial)
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(seed + 29)
     bf16, rows = torch.bfloat16, []
@@ -4876,10 +5069,13 @@ def mshard_family_rows(torch, seed: int, launches: dict, rg: dict,
     rows.append({
         "name": "paged_partial_rg", "route": "cuda", "source": PAGED_SRC,
         "replaces": PAGED_TPU,
-        "launches": launches["recurrentgemma-2b paged partial"],
+        "launches": launches["recurrentgemma-2b paged "
+                             + paged_key(pa_mod, torch, dh, H // Hkv, True)],
         "max_abs_err": max(errs),
         "ms": timer.ms(lambda: paged_attention_partial(
             qd, kp, vp, bt, cl, koff, window=W)),
+        "split_ms": timer.ms(lambda: paged_attention_partial(
+            qd, kp, vp, bt, cl, koff, window=W, kernel="split")),
         "plain_ms": mshard_plain_ms(
             timer, "paged_partial_rg",
             lambda: reference_paged_attention_partial(
@@ -4892,7 +5088,10 @@ def mshard_family_rows(torch, seed: int, launches: dict, rg: dict,
                  f"0's block of {L} positions of {rg['max_seq']} "
                  f"(recurrentgemma-2b on 1x2, the query heads gathered), "
                  f"global ctx={gctx} "
-                 f"(local {local}) bf16; rank 1's block checked too"})
+                 f"(local {local}) bf16, "
+                 f"{pa_mod.route(bf16, dh, H // Hkv)} route (split_ms: the "
+                 "split route forced in the same call); rank 1's block "
+                 "checked too"})
     return rows
 
 
@@ -4902,6 +5101,8 @@ def phase_model_shard(torch, np, seed: int, card: str) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.core import shard_plane as sp
     from repro_torch.launch import dryrun, roofline
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     launches = {}
@@ -4918,7 +5119,9 @@ def phase_model_shard(torch, np, seed: int, card: str) -> tuple:
             c = x["counts"]
             check(c["flash"] == {"wgmma": n_prefill, "scalar": 0},
                   f"model_shard ({label}): rank {r} flash launches {c}")
-            want = "split" if label == "a" else "partial"
+            want = paged_key(pa_mod, torch, cfg.head_dim,
+                             cfg.num_heads // cfg.num_kv_heads,
+                             partial=label != "a")
             check(c["paged"][want] == n_decode
                   and sum(c["paged"].values()) == n_decode,
                   f"model_shard ({label}): rank {r} paged launches {c}")
@@ -4943,10 +5146,10 @@ def phase_model_shard(torch, np, seed: int, card: str) -> tuple:
             launches["flash_prefill_tp2"] = sum(
                 x["counts"]["flash"]["wgmma"] for x in res)
             launches["paged_decode_tp2"] = sum(
-                x["counts"]["paged"]["split"] for x in res)
+                x["counts"]["paged"][want] for x in res)
         else:
             launches["paged_partial"] = sum(
-                x["counts"]["paged"]["partial"] for x in res)
+                x["counts"]["paged"][want] for x in res)
         print(f"model_shard ({label}): {arch} ({L} layers, d "
               f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
               f"bf16) on {shape[0]}x{shape[1]} ranks sharing the card, "
@@ -5069,7 +5272,7 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
-        paged_attention_serial, paged_decode_attention,
+        paged_attention, paged_attention_serial, paged_decode_attention,
         reference_paged_attention)
 
     timer = Timer(torch)
@@ -5138,8 +5341,12 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     calls["paged_decode"] = {
         "kernel": lambda: paged_decode_attention(qd, kp, vp, bt, cl),
         "previous": lambda: paged_attention_serial(qd, kp, vp, bt, cl),
+        "split": lambda: paged_attention(qd, kp, vp, bt, cl, kernel="split"),
         "library": lambda: F.scaled_dot_product_attention(
             qs, dk, dv, attn_mask=mask, enable_gqa=True)}
+    which = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention").route(
+            bf16, dh, H // Hkv)
     out.append({
         "name": "paged_decode", "route": "cuda", "source": PAGED_SRC,
         "replaces": PAGED_TPU,
@@ -5153,8 +5360,10 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
         "library_ms": timer.ms(calls["paged_decode"]["library"]),
         "previous_ms": timer.ms(calls["paged_decode"]["previous"]),
         "previous": "serial kernel (paged_decode_serial_bf16)",
+        "split_ms": timer.ms(calls["paged_decode"]["split"]),
         "shape": f"B={B} H={H} H_kv={Hkv} dh={dh} T={T} max_pages={mp} "
-                 f"ctx={ctx} bf16; library over {K} keys",
+                 f"ctx={ctx} bf16, {which} route (split_ms: the split "
+                 f"route forced); library over {K} keys",
     })
     parts = []
     for r in out:
@@ -5169,10 +5378,263 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     return out
 
 
+# -- paged probe (``--paged-probe``) ---------------------------------------------
+#: the paged decode shapes the probe times: (name, H, H_kv, dh, global
+#: contexts, window, block) with block None for the plain call, else
+#: (positions, offset) of the partial route's one block of each lane
+PROBE_PAGED = (
+    ("qwen3-8b G4 dh128", 32, 8, 128,
+     (513, 450, 390, 330, 270, 210, 150, 102), None, None, None),
+    ("qwen3-moe-30b-a3b G8 dh128", 32, 4, 128,
+     (540, 470, 400, 330, 260, 190, 120, 60), None, None, None),
+    ("recurrentgemma-2b G10 dh256 window 2048", 10, 1, 256,
+     (2402, 2330, 2210, 2150, 120, 96, 70, 58), 2048, None, None),
+    ("qwen3-moe-235b-a22b G16 dh128", 64, 4, 128,
+     (4000, 3000, 2500, 2100, 2048, 1000, 300, 64), None, None, None),
+    ("recurrentgemma-2b 1x2 partial G10 dh256 window 2048", 10, 1, 256,
+     (2125, 2263, 2390, 2455), 2048, None, (1232, 0)),
+    ("tinyllama-1.1b 1x8 partial G8 dh64", 32, 4, 64,
+     (0, 150, 192, 200, 230, 256, 300, 511), None, None, (64, 192)),
+    ("gemma2-9b global G2 dh256 softcap 50", 16, 8, 256,
+     (4640, 4448, 4375, 4250, 4212, 544, 300, 100), None, 50.0, None),
+    ("gemma2-9b local G2 dh256 window 4096 softcap 50", 16, 8, 256,
+     (4640, 4448, 4375, 4250, 4212, 544, 300, 100), 4096, 50.0, None),
+    ("internvl2-2b G2 dh128", 16, 8, 128,
+     (535, 470, 400, 330, 260, 190, 120, 64), None, None, None),
+    ("deepseek-7b G1 dh128", 32, 32, 128,
+     (535, 470, 400, 330, 260, 190, 120, 64), None, None, None),
+    ("whisper-small decoder G1 dh64", 12, 12, 64, (76, 60, 52, 44), None,
+     None, None))
+#: the group sizes of the probe's route sweep, and its (dh, H_kv,
+#: contexts, window) settings
+PROBE_GROUPS = (1, 2, 4, 8, 10, 16)
+PROBE_SWEEP = ((64, 4, (511, 400, 300, 256, 200, 150, 100, 60), None),
+               (128, 8, (513, 450, 390, 330, 270, 210, 150, 102), None),
+               (256, 1, (2402, 2330, 2210, 2150, 120, 96, 70, 58), 2048))
+#: the paged kernels' names as the profiler gives them
+PAGED_PASSES = ("paged_split_kernel", "paged_group_kernel",
+                "paged_merge_kernel")
+
+
+def paged_spans(ctxs, window, block) -> list:
+    """Each lane's live positions [lo, hi) in its block's (or its whole
+    table's) local positions."""
+    spans = []
+    for c in ctxs:
+        if block is None:
+            spans.append((max(0, c - window) if window else 0, c))
+        else:
+            L, off = block
+            hi = min(max(c - off, 0), L)
+            lo = max(0, c - window - off) if window else 0
+            spans.append((min(lo, hi), hi))
+    return spans
+
+
+def paged_sdpa(torch, q, kp, vp, bt, spans):
+    """SDPA over each lane's live keys gathered dense (not timed); a
+    lane with none sees its first key, as SDPA rows must see one."""
+    import torch.nn.functional as F
+    T = kp.shape[1]
+    n = [hi - lo for lo, hi in spans]
+    K = max(max(n), 1)
+    idx = torch.stack([torch.arange(lo, lo + K, device="cuda")
+                       .clamp(max=max(hi - 1, 0)) for lo, hi in spans])
+    pages = bt.long().gather(1, (idx // T).clamp(max=bt.shape[1] - 1))
+    dk = kp[pages.clamp_min(0), idx % T].transpose(1, 2)
+    dv = vp[pages.clamp_min(0), idx % T].transpose(1, 2)
+    mask = (torch.arange(K, device="cuda")[None, :]
+            < torch.tensor(n, device="cuda")[:, None])
+    mask[:, 0] = True
+    qs = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qs, dk, dv, attn_mask=mask[:, None, None, :], enable_gqa=True)
+
+
+def pass_ms(torch, timer, fn, n: int = 20) -> dict:
+    """Device ms a call of each paged kernel under ``torch.profiler``,
+    over ``n`` calls each after the timer's L2 flush."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in PAGED_PASSES:
+            if k in e.key:
+                out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / n
+    return out
+
+
+def parent_paged_call(torch, lib, pa, q, kp, vp, bt, cl, window, cap,
+                      koff):
+    """A call of another build of ``paged_attention.cu``'s split entry
+    (its C signature unchanged), allocating as the wrapper does."""
+    B, H, dh = q.shape
+    _, T, Hkv, _ = kp.shape
+    mp = bt.shape[1]
+    n_split = -(-mp // pa.pages_per_split(T))
+    partial = koff is not None
+    fn = getattr(lib, "paged_partial_bf16" if partial
+                 else "paged_decode_bf16")
+    fn.argtypes = pa._PARTIAL_ARGTYPES if partial else pa._ARGTYPES
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        part = torch.empty(B * Hkv * n_split * (H // Hkv) * (dh + 2),
+                           dtype=torch.float32, device="cuda")
+        if partial:
+            o = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+            lse = torch.empty(q.shape[:2], dtype=torch.float32,
+                              device="cuda")
+            ptrs = [koff.data_ptr(), o.data_ptr(), lse.data_ptr()]
+        else:
+            o = torch.empty_like(q)
+            ptrs = [o.data_ptr()]
+        err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
+                 cl.data_ptr(), *ptrs, part.data_ptr(), B, H, Hkv, T, dh,
+                 mp, int(window or 0), float(cap or 0.0),
+                 1.0 / math.sqrt(dh), stream)
+        check(err == 0, f"paged probe: the parent's launch failed ({err})")
+        return (o, lse) if partial else o
+    return call
+
+
+def paged_probe(torch, seed: int, parent: Path | None) -> dict:
+    """The paged decode kernel alone: the registers and spills of every
+    instance, each route against the plain version at the probe's
+    shapes, each route's call and its passes timed beside SDPA and the
+    bound (and, with ``parent``, another build of the same source's
+    split route in turns: parent, this, this, parent), and both routes
+    over group sizes 2-16.  Returns the rows."""
+    import ctypes
+    from repro_torch.kernels import build
+    pa = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
+    proc = None
+    if parent is not None:
+        out = ROOT / "build" / "kernels" / "libpaged_probe_parent.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                                 str(out), str(parent)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    lib = build.library("paged_attention")
+    log = build.BUILD_LOG.get("paged_attention", (0.0, ""))[1]
+    plib = None
+    if proc is not None:
+        plog, _ = proc.communicate()
+        check(proc.returncode == 0, f"paged probe: nvcc failed for "
+                                    f"{parent}:\n{plog}")
+        plib = ctypes.CDLL(str(out))
+    routes = ["split"] + (["group"] if hasattr(lib, "paged_group_bf16")
+                          else [])
+    regs = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = chunk.split("'")[1]
+        if "paged_group_kernel" in name or "paged_merge_kernel" in name:
+            found = ptxas_kernel(log, name)
+            if found:
+                regs[name] = found
+    print(f"paged probe: routes {routes}; ptxas (registers, spill bytes) "
+          f"{regs}", flush=True)
+    check(all(sp == 0 for _, sp in regs.values()),
+          f"paged probe: a kernel spills: {regs}")
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    bf16 = torch.bfloat16
+    rows = []
+
+    def call(rt, q, kp, vp, bt, cl, window, koff, cap=None):
+        if koff is None:
+            return lambda: pa.paged_attention(q, kp, vp, bt, cl, softcap=cap,
+                                              window=window, kernel=rt)
+        return lambda: pa.paged_attention_partial(q, kp, vp, bt, cl, koff,
+                                                  softcap=cap, window=window,
+                                                  kernel=rt)
+
+    for name, H, Hkv, dh, ctxs, window, cap, block in PROBE_PAGED:
+        B = len(ctxs)
+        if block is None:
+            q, kp, vp, bt, cl = paged_inputs(torch, g, B, H, Hkv, dh, ctxs,
+                                             bf16)
+            koff = None
+            plain = pa.reference_paged_attention(q, kp, vp, bt, cl,
+                                                 softcap=cap, window=window)
+        else:
+            L, off = block
+            q, kp, vp, bt, _ = paged_inputs(torch, g, B, H, Hkv, dh,
+                                            [L] * B, bf16, mp=L // 16)
+            cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+            koff = torch.full((B,), off, dtype=torch.int32, device="cuda")
+            plain = pa.reference_paged_attention_partial(
+                q, kp, vp, bt, cl, koff, softcap=cap, window=window)[0]
+        spans = paged_spans(ctxs, window, block)
+        live = sum(hi - lo for lo, hi in spans)
+        out_bytes = (4.0 * B * H * (dh + 1) if block else 2.0 * B * H * dh)
+        nbytes = (2.0 * B * H * dh + out_bytes + 4.0 * dh * live * Hkv
+                  + 4.0 * (bt.numel() + 2 * B))
+        t_ops = 4.0 * H * dh * live / PEAK_FLOPS["bfloat16"]
+        t_bytes = nbytes / HBM_BYTES_S
+        row = {"shape": name, "B": B, "live_tokens": live,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+        fns = {rt: call(rt, q, kp, vp, bt, cl, window, koff, cap)
+               for rt in routes}
+        if plib is not None:
+            fns["parent split"] = parent_paged_call(
+                torch, plib, pa, q, kp, vp, bt, cl, window, cap, koff)
+        for rt, fn in fns.items():
+            out = fn()
+            err, ok = max_err(torch, out if koff is None else out[0], plain,
+                              "bfloat16")
+            check(ok, f"paged probe {name}: {rt} off the plain version by "
+                      f"{err}")
+            row[f"{rt} max_abs_err"] = err
+        order = (["parent split", "split", "split", "parent split"]
+                 if plib is not None else ["split"])
+        for rt in order:
+            row.setdefault(f"{rt} ms", []).append(timer.ms(fns[rt]))
+        for rt in routes[1:]:
+            row[f"{rt} ms"] = [timer.ms(fns[rt])]
+        for rt, fn in fns.items():
+            row[f"{rt} passes ms"] = pass_ms(torch, timer, fn)
+        row["sdpa ms"] = timer.ms(paged_sdpa(torch, q, kp, vp, bt, spans))
+        rows.append(row)
+        print(f"paged probe {name}: " + json.dumps(row), flush=True)
+
+    for dh, Hkv, ctxs, window in PROBE_SWEEP:
+        sweep = {"dh": dh, "H_kv": Hkv, "window": window}
+        for G in PROBE_GROUPS:
+            q, kp, vp, bt, cl = paged_inputs(torch, g, len(ctxs), G * Hkv,
+                                             Hkv, dh, ctxs, bf16)
+            for rt in routes:
+                sweep[f"G{G} {rt} ms"] = timer.ms(
+                    call(rt, q, kp, vp, bt, cl, window, None))
+        rows.append(sweep)
+        print("paged probe sweep: " + json.dumps(sweep), flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--paged-probe", action="store_true",
+                    help="build and probe the paged decode kernel only")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="with --paged-probe: another paged_attention.cu "
+                         "whose split route is timed in turns")
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "build" / "paged_probe.json",
+                    help="with --paged-probe: where its rows go (JSON)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -5190,6 +5652,17 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.paged_probe:
+        try:
+            print(f"card: {card_line()}", flush=True)
+            rows = paged_probe(torch, args.seed, args.parent)
+        except Exception:                 # noqa: BLE001 — report and fail
+            traceback.print_exc()
+            return 1
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(rows, indent=1))
+        print(f"card: {card_line()}")
+        return 0
 
     phase = "build"
     t0 = time.perf_counter()

@@ -40,8 +40,11 @@ from repro_torch.kernels.paged_attention import (
     reference_paged_attention_split,
 )
 from repro_torch.kernels.paged_attention.paged_attention import (
+    GROUP_HEAD_DIMS,
+    GROUP_MIN,
     HEAD_DIMS,
     MAX_GROUP,
+    route,
 )
 from repro_torch.models import attention as attn
 
@@ -96,15 +99,24 @@ def pallas(q, kp, vp, bt, cl, dtype="float32", softcap=None):
 
 def test_kernel_coverage_constants():
     """The shapes the card's kernel takes: every config of the reference
-    with attention layers falls inside them."""
+    with attention layers falls inside them; in bf16 every one but the
+    G 1 configs (deepseek-7b, whisper-small) takes the group route's
+    widths and groups."""
     assert HEAD_DIMS == (16, 32, 64, 128, 256) and MAX_GROUP == 16
+    assert GROUP_HEAD_DIMS == (64, 128, 256) and GROUP_MIN == 2
+    assert set(GROUP_HEAD_DIMS) <= set(HEAD_DIMS)
     for name in ("gemma2-2b", "gemma2-9b", "recurrentgemma-2b",
                  "qwen3-moe-235b-a22b", "qwen3-moe-30b-a3b", "qwen3-8b",
                  "deepseek-7b", "tinyllama-1.1b", "internvl2-2b",
                  "whisper-small"):
         cfg = jax_get_config(name)
+        group = cfg.num_heads // cfg.num_kv_heads
         assert cfg.head_dim in HEAD_DIMS, name
-        assert 1 <= cfg.num_heads // cfg.num_kv_heads <= MAX_GROUP, name
+        assert 1 <= group <= MAX_GROUP, name
+        want = "split" if name in ("deepseek-7b", "whisper-small") \
+            else "group"
+        assert route(torch.bfloat16, cfg.head_dim, group) == want, name
+        assert route(torch.float32, cfg.head_dim, group) == "split", name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
