@@ -1,0 +1,5 @@
+"""``decode_dispatch_ms`` in the cell below the knee, where it moves the cell's
+end-to-end rate, ``served_tok_s.below_knee``."""
+from harness.cell import reader
+
+read = reader("decode_dispatch_ms")

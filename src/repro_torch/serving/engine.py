@@ -40,6 +40,37 @@ not.
 Encoder-decoder models are refused (fault C10, in the reference): the
 reference engine calls prefill without the encoder's frames, so its
 encoder gets none; whisper runs through the model's entry points.
+
+Spans (``telemetry=``, a ``repro_torch.telemetry.Telemetry``; off by
+default, and then nothing is recorded).  On the host clock
+(``Telemetry.clock``), on the ``engine`` track::
+
+    engine.step                 queue_depth, lanes_active
+    ├── engine.prefill          rid, lane, prompt_tokens
+    │   ├── model.prefill       + the device interval
+    │   └── engine.first_token  argmax + int(); instant first_token (rid)
+    └── engine.decode           lanes
+        ├── engine.tables       block tables, token/position/lane tensors
+        ├── model.decode_step   + the device interval
+        ├── engine.sample       argmax + tolist()
+        └── engine.bookkeeping  KV extend, finishes (instant finished),
+                                Gateway.on_complete
+
+``engine.admit`` (rid, the verdict) wraps the gateway call of
+``submit``, and ``request.queued`` (rid, on the ``queue`` track) runs
+from its end to the start of the request's ``engine.prefill``.  Each
+decode step samples the counters ``lanes_active``, ``queue_depth``,
+``kv_used_bytes`` (the pages held) and ``kv_reserved_bytes`` (the KV the
+gateway's pools charged at admission, summed over their live rows).
+The ``model.*`` spans are taken in a copy of the ``Model`` whose
+``prefill`` and ``decode_step`` record them, swapped in when the
+telemetry is set: they bracket only the call into the model, and sit
+inside any wrapper a caller puts around ``engine.model`` afterwards.
+On CUDA the telemetry's device clock is attached then too (one
+synchronise), and the two model spans carry their device interval.
+``Request.first_token_s`` stays the ``now`` of the step, as in the
+reference; the ``first_token`` instant is the host time after the
+prefill.
 """
 from __future__ import annotations
 
@@ -54,6 +85,9 @@ from repro_torch.models import Model, Runtime
 from repro_torch.serving.kv_manager import KVBlockManager
 from repro_torch.serving.request import Request, RequestState
 
+#: the tracks of the engine's spans
+TRACK, QUEUE_TRACK = "engine", "queue"
+
 
 @dataclasses.dataclass
 class Lane:
@@ -67,7 +101,7 @@ class InferenceEngine:
     def __init__(self, model: Model, params, slots: int, max_seq: int,
                  gateway: Optional[Gateway] = None,
                  rt: Runtime = Runtime(), page_tokens: int = 16,
-                 eos_id: Optional[int] = None) -> None:
+                 eos_id: Optional[int] = None, telemetry=None) -> None:
         if model.cfg.is_encoder_decoder:
             raise ValueError(
                 f"{model.cfg.name}: the engine serves decoder-only models; "
@@ -75,7 +109,7 @@ class InferenceEngine:
                 "which the engine, like the reference's, never passes "
                 "(ROADMAP fault C10); call the model's prefill and "
                 "decode_step with extra_embed=frames instead")
-        self.model = model
+        self.model = self._plain_model = model
         self.params = params
         self.device = params.device
         self.slots = slots
@@ -94,17 +128,86 @@ class InferenceEngine:
         self.lanes = [Lane() for _ in range(slots)]
         self.queue: list[Request] = []
         self.finished: list[Request] = []
+        #: the open ``request.queued`` span of each queued request
+        self._queued: dict[str, int] = {}
+        #: the open ``engine.step`` span, and the span the ``model.*``
+        #: spans nest under
+        self._step: Optional[int] = None
+        self._parent: Optional[int] = None
+        self.telemetry = telemetry
+
+    # -- telemetry -------------------------------------------------------------
+    @property
+    def telemetry(self):
+        return self._telemetry
+
+    @telemetry.setter
+    def telemetry(self, telemetry) -> None:
+        """Set (a ``Telemetry``) or clear (None) the engine's telemetry.
+        Set it before wrapping ``self.model``'s entry points: setting it
+        swaps in a traced copy of the model."""
+        self._telemetry = telemetry
+        self._trace = None if telemetry is None else telemetry.trace
+        self.model = self._plain_model
+        if self._trace is None:
+            return
+        if torch.device(self.device).type == "cuda":
+            self._telemetry.attach_device()
+        self.model = dataclasses.replace(
+            self.model,
+            prefill=self._traced("model.prefill", self.model.prefill),
+            decode_step=self._traced("model.decode_step",
+                                     self.model.decode_step))
+
+    def _traced(self, name: str, fn):
+        trace, clock = self._trace, self._telemetry.clock
+
+        def call(*args, **kwargs):
+            sid = trace.begin(name, TRACK, clock(), parent=self._parent,
+                              device=True)
+            out = fn(*args, **kwargs)
+            trace.end(sid, clock())
+            return out
+        return call
+
+    def _kv_reserved(self) -> float:
+        """The KV bytes the gateway's pools charged at admission for the
+        requests they hold (their ``kv_in_use`` over live rows)."""
+        if self.gateway is None:
+            return 0.0
+        total = 0.0
+        for pool in self.gateway.manager.pools.values():
+            store = pool.store
+            total += float(store.col["kv_in_use"][store.live_slots()].sum())
+        return total
+
+    def _sample(self, t: float, active: int) -> None:
+        trace = self._trace
+        for name, value in (
+                ("lanes_active", active), ("queue_depth", len(self.queue)),
+                ("kv_used_bytes", self.kv_pages.kv_bytes_in_use()),
+                ("kv_reserved_bytes", self._kv_reserved())):
+            trace.counter(name, TRACK, t, {name: value})
 
     # -- submission ----------------------------------------------------------
     def submit(self, req: Request, now: float,
                api_key: Optional[str] = None) -> bool:
         """Admission-gated enqueue.  Returns False on 429/401."""
+        trace = self._trace
         if self.gateway is not None:
+            if trace is not None:
+                clock = self._telemetry.clock
+                span = trace.begin("engine.admit", TRACK, clock(),
+                                   rid=req.request_id)
             resp = self.gateway.handle(
                 api_key or req.api_key, req.request_id,
                 input_tokens=req.input_len, max_tokens=req.max_tokens,
                 now=now,
                 kv_bytes_per_token=self.model.cfg.kv_bytes_per_token)
+            if trace is not None:
+                t = clock()
+                trace.end(span, t, {"status": resp.status,
+                                    "reason": resp.reason})
             if resp.status != 200:
                 req.state = RequestState.DENIED
                 req.deny_reason = resp.reason
@@ -113,6 +216,11 @@ class InferenceEngine:
                 return False
             req.priority = resp.priority
         req.admitted_s = now
+        if trace is not None:
+            self._queued[req.request_id] = trace.begin(
+                "request.queued", QUEUE_TRACK,
+                t if self.gateway is not None else self._telemetry.clock(),
+                rid=req.request_id)
         self.queue.append(req)
         self.queue.sort(key=lambda r: (-r.priority, r.arrival_s))
         return True
@@ -127,6 +235,14 @@ class InferenceEngine:
         return torch.from_numpy(rows).to(self.device)
 
     def _start(self, lane_idx: int, req: Request, now: float) -> None:
+        trace = self._trace
+        if trace is not None:
+            clock, rid = self._telemetry.clock, req.request_id
+            t = clock()
+            trace.end(self._queued.pop(rid, -1), t)
+            span = self._parent = trace.begin(
+                "engine.prefill", TRACK, t, parent=self._step, rid=rid,
+                args={"lane": lane_idx, "prompt_tokens": req.input_len})
         lane = self.lanes[lane_idx]
         self.kv_pages.allocate(req.request_id, req.input_len)
         tokens = torch.tensor([req.prompt_tokens], dtype=torch.long,
@@ -135,7 +251,14 @@ class InferenceEngine:
         logits = self.model.prefill(
             self.params, tokens, self.cache, self._tables([req.request_id]),
             lanes=torch.tensor([lane_idx], device=self.device))
+        if trace is not None:
+            first_span = trace.begin("engine.first_token", TRACK, clock(),
+                                     parent=span, rid=rid)
         first = int(torch.argmax(logits[0, -1]))
+        if trace is not None:
+            t = clock()
+            trace.end(first_span, t)
+            trace.instant("first_token", TRACK, t, {"rid": rid})
         req.first_token_s = now
         req.output_tokens.append(first)
         req.state = RequestState.DECODING
@@ -144,11 +267,21 @@ class InferenceEngine:
         lane.remaining = req.max_tokens - 1
         lane.last_token = first
         self.kv_pages.extend(req.request_id, req.input_len + 1)
+        if trace is not None:
+            trace.end(span, clock())
 
     def step(self, now: float) -> int:
         """One engine iteration: admit-from-queue → batched decode.
         Returns the number of tokens produced."""
-        for lane_idx in self._free_lanes():
+        trace = self._trace
+        free = self._free_lanes()
+        if trace is not None:
+            clock = self._telemetry.clock
+            step_span = self._step = trace.begin(
+                "engine.step", TRACK, clock(),
+                args={"queue_depth": len(self.queue),
+                      "lanes_active": self.slots - len(free)})
+        for lane_idx in free:
             if not self.queue:
                 break
             req = self.queue.pop(0)
@@ -157,17 +290,36 @@ class InferenceEngine:
         active = [i for i, l in enumerate(self.lanes)
                   if l.request is not None]
         if not active:
+            if trace is not None:
+                trace.end(step_span, clock())
             return 0
+        if trace is not None:
+            decode_span = self._parent = trace.begin(
+                "engine.decode", TRACK, clock(), parent=step_span,
+                args={"lanes": len(active)})
+            span = trace.begin("engine.tables", TRACK, clock(),
+                               parent=decode_span)
         lanes = [self.lanes[i] for i in active]
         tokens = torch.tensor([[l.last_token] for l in lanes],
                               dtype=torch.long, device=self.device)
         positions = torch.tensor([l.position for l in lanes],
                                  dtype=torch.int32, device=self.device)
+        tables = self._tables([l.request.request_id for l in lanes])
+        lane_ids = torch.tensor(active, device=self.device)
+        if trace is not None:
+            trace.end(span, clock())
         logits = self.model.decode_step(
-            self.params, tokens, self.cache,
-            self._tables([l.request.request_id for l in lanes]), positions,
-            lanes=torch.tensor(active, device=self.device))
+            self.params, tokens, self.cache, tables, positions,
+            lanes=lane_ids)
+        if trace is not None:
+            span = trace.begin("engine.sample", TRACK, clock(),
+                               parent=decode_span)
         nxt = torch.argmax(logits[:, 0, :], dim=-1).tolist()
+        if trace is not None:
+            t = clock()
+            trace.end(span, t)
+            span = trace.begin("engine.bookkeeping", TRACK, t,
+                               parent=decode_span)
         produced = 0
         for lane, tok in zip(lanes, nxt):
             req = lane.request
@@ -189,8 +341,17 @@ class InferenceEngine:
                     self.gateway.on_complete(
                         req.request_id, len(req.output_tokens),
                         latency_s=now - req.arrival_s, now=now)
+                if trace is not None:
+                    trace.instant("finished", TRACK, clock(),
+                                  {"rid": req.request_id})
                 lane.request = None
                 lane.remaining = 0
+        if trace is not None:
+            t = clock()
+            trace.end(span, t)
+            trace.end(decode_span, t)
+            self._sample(t, len(active))
+            trace.end(step_span, t)
         return produced
 
     def evict(self, request_id: str, now: float) -> bool:
@@ -214,6 +375,10 @@ class InferenceEngine:
                 return True
         for i, req in enumerate(self.queue):
             if req.request_id == request_id:
+                if self._trace is not None:
+                    self._trace.end(self._queued.pop(request_id, -1),
+                                    self._telemetry.clock(),
+                                    {"evicted": True})
                 req.state = RequestState.EVICTED
                 req.finished_s = now
                 self.finished.append(self.queue.pop(i))

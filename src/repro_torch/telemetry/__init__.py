@@ -11,11 +11,16 @@ Quickstart::
     print(gw.telemetry.flight.explain(rid).narrative())
     open("trace.json", "w").write(gw.telemetry.chrome_trace())
 
+    engine = InferenceEngine(model, params, slots, max_seq, gateway=gw,
+                             telemetry=Telemetry())   # engine spans
+    engine.telemetry.trace.spans()           # (sid, name, ..., device)
+
 Counterpart of ``repro.telemetry``: numpy only, so the port keeps its
 own copy of every module, importing the port's ``core``.
 """
-from repro_torch.telemetry.export import (TraceBuffer, chrome_trace_json,
-                                          json_snapshot, prometheus_text)
+from repro_torch.telemetry.export import (Span, TraceBuffer,
+                                          chrome_trace_json, json_snapshot,
+                                          prometheus_text)
 from repro_torch.telemetry.facade import Telemetry
 from repro_torch.telemetry.flight import (DecisionTrace, FlightRecorder,
                                           FlightRow)
@@ -32,6 +37,7 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "SloTracker",
+    "Span",
     "TIER_NAMES",
     "Telemetry",
     "TraceBuffer",

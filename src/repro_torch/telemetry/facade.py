@@ -367,6 +367,14 @@ class Telemetry:
     def chrome_trace(self) -> str:
         return chrome_trace_json(self.trace)
 
+    def attach_device(self) -> None:
+        """Let spans carry device intervals: take the CUDA anchor that
+        puts the device's events on ``clock()`` (idempotent; call it
+        while the device is idle, in set-up)."""
+        if self.trace.device_clock is None:
+            from repro_torch.telemetry.device import DeviceClock
+            self.trace.device_clock = DeviceClock(self.clock)
+
     @staticmethod
     def clock() -> float:
         """Wall-clock source for duration measurements."""
