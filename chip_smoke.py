@@ -84,12 +84,17 @@ each reported on its own line:
    full-depth Qwen3-8B (bf16, random init from ``--seed``) serving a
    guaranteed and a spot tenant; every flash launch on this path must
    take the tensor-core route and every paged launch the route
-   ``route()`` names (``group`` at Qwen3-8B's G 4),
+   ``route()`` names (``group`` at Qwen3-8B's G 4), every decode step
+   a replay of one of the engine's decode graphs, each row count
+   captured once (the same workload served on the eager path launching
+   the same kernels by route, and five of the eight lanes decoding 8
+   steps through the graph of 5 rows and the eager step in turn, logits
+   within bf16's tolerance),
    and a reduced model served on the card must give the same greedy
    tokens as on the CPU;
-9. ``profile`` — a decode step and a prefill of 8 lanes on the same
-   model, on the host clock and under ``torch.profiler`` (device time
-   by kernel);
+9. ``profile`` — a decode step (eager, and through the engine's decode
+   graph) and a prefill of 8 lanes on the same model, on the host clock
+   and under ``torch.profiler`` (device time by kernel);
 10. ``families`` — after the kernel report, with Qwen3-8B freed: the
    paged kernel at the families' shapes (gemma2-9b's dh 256 / G 2 with
    window 4096 and softcap 50 over contexts 0-8,192, recurrentgemma-2b's
@@ -107,13 +112,17 @@ each reported on its own line:
    names, every paged launch on the route ``route()`` names and the
    local layers windowed, no
    plain version on CUDA tensors, the MoE capacity's dropped share, the
-   recurrent layers' share of a prefill and a decode step), one line
+   recurrent layers' share of a prefill and a decode step; gemma2-9b
+   and internvl2-2b decoding through the engine's decode graphs, each
+   row count captured once and a replay a decode step, the others
+   eagerly), one line
    per model, and internvl2-2b's image prefix (256 patch embeddings) at
    the model level; whisper-small at full width and depth through its
    model entry points (4 sequences of 1,500 frames, 32 decode steps,
    flash launches counted by call); and every configuration the engine
    serves, reduced in float32, with identical greedy tokens on the card
-   and the CPU, and reduced whisper-small at the model level;
+   (the dense ones through the decode graphs) and the CPU, and reduced
+   whisper-small at the model level;
 11. ``train`` — last, after the families (every served model freed):
    (a) full-width, full-depth tinyllama-1.1b (bf16 params, float32
    moments) trained 8 steps on the launcher's batch of 8 × 256 tokens
@@ -2317,6 +2326,15 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
         eng = serving.InferenceEngine(
             dataclasses.replace(model, prefill=timed_prefill), params,
             slots=slots, max_seq=max_seq, gateway=gw, page_tokens=page)
+        # the engine's decode steps, counted on top of its decode graph
+        decode_calls = [0]
+        graph_decode = eng.model.decode_step
+
+        def counted_decode(*a, **kw):
+            decode_calls[0] += 1
+            return graph_decode(*a, **kw)
+        eng.model = dataclasses.replace(eng.model,
+                                        decode_step=counted_decode)
         spec = workload(np, seed, n_requests, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
         for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
@@ -2335,6 +2353,7 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
     finally:
         fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphs_txt = check_decode_graph(eng, decode_calls[0], True, "serve")
 
     check(launches["flash_prefill"] > 0 and launches["paged_decode"] > 0,
           f"serve: a kernel never launched on the serve path: {launches}")
@@ -2376,6 +2395,9 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
     check(tuple(logits.shape) == (1, 1, cfg.padded_vocab)
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
           "serve: full-width logits not finite or of the wrong shape")
+    graph_txt = serve_graph_check(torch, np, serving, build_gateway, model,
+                                  params, cfg, eng, spec, routes, wall,
+                                  max_tokens, seed)
 
     for tenant in ("prod", "batch"):
         sel = [r for r in reqs if r.entitlement == tenant]
@@ -2398,11 +2420,107 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
         f"{decode_tokens / decode_s:.1f} tokens/s of wall time "
         f"({decode_tokens} tokens in {decode_s:.2f} s); peak memory "
         f"{peak_gb:.2f} GB; launches by route {routes}; plain calls on CUDA "
-        f"{plain_on_cuda}")
+        f"{plain_on_cuda}; {graphs_txt}; {graph_txt}")
     return {"launches": launches, "prompts": [len(s[2]) for s in spec],
             "fin_ctx": [len(r.prompt_tokens) + max_tokens // 2
                         for r in fin[:slots]],
             "engine": eng, "model": model, "params": params, "cfg": cfg}
+
+
+def check_decode_graph(eng, calls: int, graphed: bool, what: str) -> str:
+    """That ``eng`` decodes through its decode graphs where ``graphed``
+    (each row count captured once, one replay for each of its ``calls``
+    decode calls) and eagerly elsewhere.  Returns the report's text."""
+    graph = eng.decode_graph
+    check((graph is not None) == graphed,
+          f"{what}: the engine decodes "
+          f"{'eagerly' if graph is None else 'through the decode graphs'}, "
+          f"which its model should not")
+    if graph is None:
+        return "decode eager (the active lanes)"
+    check(graph.captures == len(graph.graphs) and graph.replays == calls,
+          f"{what}: {calls} decode calls, the decode graphs replayed "
+          f"{graph.replays} times and captured {graph.captures} times at "
+          f"rows {sorted(graph.graphs)}")
+    return (f"decode graphs at rows {sorted(graph.graphs)}: "
+            f"{graph.captures} captures, {graph.replays} replays")
+
+
+def serve_graph_check(torch, np, serving, build_gateway, model, params,
+                      cfg, eng, spec, routes: dict, wall: float,
+                      max_tokens: int, seed: int) -> str:
+    """The serve path's decode graph against the eager path: the same
+    workload served by an engine whose ``decode_step`` is wrapped (so it
+    decodes eagerly, the active lanes only) launches the same kernels by
+    route; then lanes 0, 2, 3, 5 and 7 of the served engine's 8, their
+    prompts prefilled into its pages, decode 8 steps, each first through
+    the eager step and then through the graph of 5 rows on the same
+    inputs (its K/V writes overwrite the eager ones), logits within
+    ``TOL['bfloat16']``.  Returns the report's text."""
+    fa_mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    pa_mod = importlib.import_module(
+        "repro_torch.kernels.paged_attention.paged_attention")
+    pool, gw = build_gateway(cfg, eng.slots, max_tokens, "cuda")
+    twin = serving.InferenceEngine(
+        dataclasses.replace(
+            model, decode_step=lambda *a, **k: model.decode_step(*a, **k)),
+        params, slots=eng.slots, max_seq=eng.max_seq, gateway=gw,
+        page_tokens=eng.kv_pages.page_tokens)
+    check(twin.decode_graph is None,
+          "serve: a wrapped decode_step took the graph path")
+    for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
+        fn.launches = 0
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+    t = time.perf_counter()
+    drive(torch, twin, pool, serving, spec, max_tokens)
+    eager_wall = time.perf_counter() - t
+    eager_routes = {"flash": dict(fa_mod.flash_attention.route_launches),
+                    "paged": dict(pa_mod.paged_attention.route_launches)}
+    check(eager_routes == routes,
+          f"serve: the graph path launched {routes}, the eager path "
+          f"{eager_routes}")
+    del twin
+    torch.cuda.empty_cache()
+
+    lanes, steps = [0, 2, 3, 5, 7], 8
+    ctx = [100, 517, 1023, 1500, 1990]
+    kv = eng.kv_pages
+    ids = [f"graph{i}" for i in lanes]
+    for rid, n in zip(ids, ctx):
+        kv.allocate(rid, n + steps)
+    tables = torch.from_numpy(np.stack(
+        [kv.block_table(rid, eng.max_pages) for rid in ids])).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    tok = torch.zeros((len(lanes), 1), dtype=torch.long, device="cuda")
+    for b, n in enumerate(ctx):
+        prompt = torch.randint(0, cfg.vocab_size, (1, n), device="cuda",
+                               generator=g)
+        tok[b, 0] = model.prefill(params, prompt, eng.cache,
+                                  tables[b:b + 1])[0, -1].argmax()
+    pos = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    lane_ids = torch.tensor(lanes, device="cuda")
+    graph = eng.decode_graph
+    errs, agree = [], 0
+    for _ in range(steps):
+        ref = model.decode_step(params, tok, eng.cache, tables, pos,
+                                lanes=lane_ids)
+        out = graph(params, tok, eng.cache, tables, pos, lanes=lane_ids)
+        err, ok = max_err(torch, out[..., :cfg.vocab_size],
+                          ref[..., :cfg.vocab_size], "bfloat16")
+        check(ok, f"serve: the decode graph's logits {err:.3g} from the "
+              f"eager step's, beyond {TOL['bfloat16']}")
+        errs.append(err)
+        agree += int((out.argmax(-1) == ref.argmax(-1)).sum())
+        tok, pos = out.argmax(-1), pos + 1
+    for rid in ids:
+        kv.free(rid)
+    return (f"the same workload served "
+            f"eagerly launched the same kernels by route in "
+            f"{eager_wall:.2f} s of wall time (graph {wall:.2f} s); lanes "
+            f"{lanes} of {eng.slots} at contexts {ctx}, {steps} steps: "
+            f"graph vs eager logits max |err| {max(errs):.3g}, greedy "
+            f"tokens agree {agree}/{steps * len(lanes)}")
 
 
 def phase_profile(torch, np, seed: int, served: dict) -> None:
@@ -2419,7 +2537,7 @@ def phase_profile(torch, np, seed: int, served: dict) -> None:
     kv = eng.kv_pages
     ids = [f"profile{i}" for i in range(B)]
     for rid in ids:
-        kv.allocate(rid, S + 3 * n)
+        kv.allocate(rid, S + 5 * n)
     tables = torch.from_numpy(np.stack(
         [kv.block_table(rid, eng.max_pages) for rid in ids])).to("cuda")
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
@@ -2439,6 +2557,14 @@ def phase_profile(torch, np, seed: int, served: dict) -> None:
         state["tok"] = logits[:, 0].argmax(-1, keepdim=True)
         state["pos"] = state["pos"] + 1
 
+    lane_ids = torch.arange(B, device="cuda")
+
+    def graph_decode():
+        logits = eng.decode_graph(params, state["tok"], eng.cache, tables,
+                                  state["pos"], lanes=lane_ids)
+        state["tok"] = logits[:, 0].argmax(-1, keepdim=True)
+        state["pos"] = state["pos"] + 1
+
     def wall_ms(fn, reps):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2451,9 +2577,13 @@ def phase_profile(torch, np, seed: int, served: dict) -> None:
         prefill(b)
     decode()
     step_ms = wall_ms(decode, n)
+    graph_decode()                  # this row count's capture, not timed
+    graph_ms = wall_ms(graph_decode, n)
     prefill_ms = wall_ms(prefill, 1)
     parts = []
-    for name, fn in (("decode step", decode), ("prefill", prefill)):
+    for name, fn in (("decode step", decode),
+                     ("decode step through the engine's graph",
+                      graph_decode), ("prefill", prefill)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             profiled_ms = wall_ms(fn, 1)
@@ -2481,7 +2611,8 @@ def phase_profile(torch, np, seed: int, served: dict) -> None:
     for rid in ids:
         kv.free(rid)
     print(f"profile: {B} lanes at {S} tokens, full-width model; decode step "
-          f"{step_ms:.2f} ms wall (mean of {n}); prefill of 1x{S} tokens "
+          f"{step_ms:.2f} ms wall (mean of {n}), through the engine's decode "
+          f"graph {graph_ms:.2f} ms; prefill of 1x{S} tokens "
           f"{prefill_ms:.2f} ms wall; under torch.profiler " + "; ".join(parts))
 
 
@@ -2548,6 +2679,11 @@ TOL_FAMILIES = (2e-3, 2e-2)
 FAMILY_ARCHS = ("deepseek-7b", "tinyllama-1.1b", "gemma2-2b", "gemma2-9b",
                 "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
                 "recurrentgemma-2b", "xlstm-350m", "internvl2-2b")
+#: the configurations whose engines decode through the decode graphs on
+#: the card (attention layers with dense MLPs only); the others decode
+#: eagerly
+FAMILY_GRAPHED = ("deepseek-7b", "tinyllama-1.1b", "gemma2-2b", "gemma2-9b",
+                  "internvl2-2b")
 #: whisper-small's encoder frames (30 s of audio) and decode steps
 WHISPER_FRAMES, WHISPER_STEPS = 1500, 32
 
@@ -2834,20 +2970,32 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
             fa_mod.flash_attention.launches - n0
         return out
 
+    # the engine's own decode step (its graphs, or the eager step),
+    # called through inner() and counted
+    decode_calls = [0]
+
+    def inner(*a, **kw):
+        decode_calls[0] += 1
+        return engine_decode(*a, **kw)
+
     def timed_decode(*a, **kw):
         # each step with more lanes than any before it runs under the
         # profiler instead (not timed); the last is the busiest step
         B = a[1].shape[0]
         if B > busy.get("lanes", 0):
+            if eng.decode_graph is not None:
+                # this row count's graph captured outside the profiler: a
+                # dense step run twice on the same inputs writes the same
+                # K/V and gives the same logits
+                inner(*a, **kw)
             res = {}
             busy["lanes"] = B
             busy["share"] = busy_share(
-                torch, lambda: res.setdefault("out",
-                                              model.decode_step(*a, **kw)))
+                torch, lambda: res.setdefault("out", inner(*a, **kw)))
             return res["out"]
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = model.decode_step(*a, **kw)
+        out = inner(*a, **kw)
         torch.cuda.synchronize()
         decode_ms.append((B, 1e3 * (time.perf_counter() - t)))
         return out
@@ -2876,9 +3024,10 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
         pool, gw = build_gateway(cfg, slots, max_tokens, "cuda",
                                  kv_bytes=kv_bytes)
         eng = serving.InferenceEngine(
-            dataclasses.replace(model, prefill=timed_prefill,
-                                decode_step=timed_decode), params,
+            dataclasses.replace(model, prefill=timed_prefill), params,
             slots=slots, max_seq=max_seq, gateway=gw, page_tokens=page)
+        engine_decode = eng.model.decode_step
+        eng.model = dataclasses.replace(eng.model, decode_step=timed_decode)
         spec = family_workload(np, seed + 5, cfg.vocab_size, long, short, n)
         for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
             fn.launches = 0
@@ -2894,6 +3043,8 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
         fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
         moe_mod._dispatch_indices = dispatch
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graph_txt = check_decode_graph(eng, decode_calls[0],
+                                   arch in FAMILY_GRAPHED, f"families {arch}")
 
     fin = [r for r in reqs if r.state.value == "finished"]
     check(len(fin) == len(reqs), f"families {arch}: "
@@ -2988,7 +3139,8 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
            f"({100 * dev_wall[0] / dev_wall[1]:.0f} %)" if dev_wall
            else "not measured (no device time recorded)")
         + f"; peak memory {peak_gb:.2f} GB; launches by route {routes}; "
-        f"plain calls on CUDA {plain_on_cuda}" + rec_txt + drop_txt)
+        f"plain calls on CUDA {plain_on_cuda}; {graph_txt}" + rec_txt
+        + drop_txt)
     ctx = [len(r.prompt_tokens) + max_tokens // 2 for r in fin[:slots]]
     return {"launches": launches, "routes": routes,
             "flash_by_len": flash_by_len, "cfg": cfg, "ctx": ctx,
@@ -3302,7 +3454,8 @@ def family_small_reference(torch, np, seed: int) -> None:
     """Each configuration the engine serves beside qwen3-8b, reduced and
     in float32, served on the card (kernels) and on the CPU (plain
     versions), and whisper-small reduced at the model level: identical
-    greedy tokens."""
+    greedy tokens; on the card the dense ones decode through the decode
+    graphs and the others eagerly."""
     from repro_torch import serving
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_gateway
@@ -3322,13 +3475,24 @@ def family_small_reference(torch, np, seed: int) -> None:
                 model, copy.deepcopy(params).to(dev), slots=4,
                 max_seq=cfg.max_seq_len, gateway=gw,
                 rt=Runtime(kv_cache_dtype="float32"))
+            calls, engine_decode = [0], eng.model.decode_step
+
+            def counted(*a, **kw):
+                calls[0] += 1
+                return engine_decode(*a, **kw)
+            eng.model = dataclasses.replace(eng.model, decode_step=counted)
             reqs = drive(torch, eng, pool, serving, spec, 12)
             outs[dev] = [(r.request_id, r.state.value,
                           list(r.output_tokens)) for r in reqs]
+            if dev == "cuda":
+                graph_txt = check_decode_graph(
+                    eng, calls[0], arch in FAMILY_GRAPHED,
+                    f"families reference {arch}")
         check(outs["cuda"] == outs["cpu"],
               f"families reference: reduced {arch} gave different greedy "
               "tokens on the card and on the CPU")
-        parts.append(f"{arch} {sum(len(o[2]) for o in outs['cpu'])}")
+        parts.append(f"{arch} {sum(len(o[2]) for o in outs['cpu'])} "
+                     f"({graph_txt})")
     parts.append(f"whisper-small (model level) "
                  f"{whisper_small_reference(torch, np, seed)}")
     print("families reference: reduced float32 configs, greedy tokens "

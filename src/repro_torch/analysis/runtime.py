@@ -23,13 +23,10 @@ import dataclasses
 
 def route_launches() -> dict[str, dict[str, int]]:
     """Launches so far of each kernel wrapper, by route."""
-    from repro_torch.kernels.admit_quantum import admit_scan
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels import launch_counts
 
-    return {"admit_quantum": dict(admit_scan.route_launches),
-            "flash_attention": dict(flash_attention.route_launches),
-            "paged_attention": dict(paged_attention.route_launches)}
+    return {kernel: counters["route_launches"]
+            for kernel, counters in launch_counts().items()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -145,8 +145,9 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
           scale_by_sqrt_dim: bool = False) -> torch.Tensor:
     out = table[tokens]
     if scale_by_sqrt_dim:
-        out = out * torch.tensor(math.sqrt(out.shape[-1]), dtype=out.dtype,
-                                 device=out.device)
+        # a host scalar in the table's dtype: no copy to the device, so
+        # the step stays capturable in a CUDA graph
+        out = out * torch.tensor(math.sqrt(out.shape[-1]), dtype=out.dtype)
     return out
 
 

@@ -19,15 +19,27 @@ plain versions (the device of the params decides).
 
 Idle lanes (fault C9, in the reference).  The reference engine decodes
 all ``slots`` lanes every step, idle ones included with their stale
-token and position; this engine decodes the active lanes only.  For a
-dense model the two are equal lane by lane.  For MoE they are not: the
-expert capacity ``C = max(1, int(T·k/E·cf))`` depends on the token
-count T, and the dispatch's stable sort gives an expert's slots to the
-lower lanes first, so in the reference a finished request's stale lane
-takes expert capacity from the live lanes above it.  Copying that would
-mean decoding stale lanes over a stale cache; the port keeps the
-active-lane decode, and equals the reference wherever every lane is
-active (``tests/test_torch_families.py`` shows both sides).
+token and position.  This engine takes one of two paths, chosen once
+from what it is given (``decode_graph.graphable``):
+
+* the graph path — parameters on CUDA, an unsharded runtime, the
+  library's own ``decode_step`` and only attention layers with dense
+  MLPs: every step replays a CUDA graph of the fewest rows
+  (``decode_graph.row_counts``) that holds the active lanes
+  (``decode_graph.DecodeGraph``, ``self.decode_graph``), the lanes in
+  its first rows and the rest padded with token 0 at position 0 over a
+  scratch page that the cache holds past the ``KVBlockManager``'s
+  pages, their logits dropped.  Rows of such a model do not interact,
+  so each active lane's logits are the active-lane decode's;
+* the eager path — everything else: the active lanes only, in one
+  batched call.  For MoE the two differ: the expert capacity
+  ``C = max(1, int(T·k/E·cf))`` depends on the token count T, and the
+  dispatch's stable sort gives an expert's slots to the lower lanes
+  first, so in the reference a finished request's stale lane takes
+  expert capacity from the live lanes above it.  Copying that would
+  mean decoding stale lanes over a stale cache; the port keeps the
+  active-lane decode, and equals the reference wherever every lane is
+  active (``tests/test_torch_families.py`` shows both sides).
 
 Recurrent layers (rglru, mlstm, slstm) keep their state per lane, in
 row ``lane`` of the cache's state tensors: ``_start`` resets the row
@@ -49,7 +61,8 @@ default, and then nothing is recorded).  On the host clock
     ├── engine.prefill          rid, lane, prompt_tokens
     │   ├── model.prefill       + the device interval
     │   └── engine.first_token  argmax + int(); instant first_token (rid)
-    └── engine.decode           lanes
+    └── engine.decode           lanes, graphed (the step replayed the
+                                decode graph)
         ├── engine.tables       block tables, token/position/lane tensors
         ├── model.decode_step   + the device interval
         ├── engine.sample       argmax + tolist()
@@ -60,8 +73,10 @@ default, and then nothing is recorded).  On the host clock
 ``submit``, and ``request.queued`` (rid, on the ``queue`` track) runs
 from its end to the start of the request's ``engine.prefill``.  Each
 decode step samples the counters ``lanes_active``, ``queue_depth``,
-``kv_used_bytes`` (the pages held) and ``kv_reserved_bytes`` (the KV the
-gateway's pools charged at admission, summed over their live rows).
+``kv_used_bytes`` (the pages held), ``kv_reserved_bytes`` (the KV the
+gateway's pools charged at admission, summed over their live rows) and
+``decode_graph_replays`` (the decode graph's replays so far; 0 on the
+eager path).
 The ``model.*`` spans are taken in a copy of the ``Model`` whose
 ``prefill`` and ``decode_step`` record them, swapped in when the
 telemetry is set: they bracket only the call into the model, and sit
@@ -82,6 +97,7 @@ import torch
 
 from repro_torch.gateway import Gateway
 from repro_torch.models import Model, Runtime
+from repro_torch.serving.decode_graph import DecodeGraph, graphable
 from repro_torch.serving.kv_manager import KVBlockManager
 from repro_torch.serving.request import Request, RequestState
 
@@ -109,7 +125,6 @@ class InferenceEngine:
                 "which the engine, like the reference's, never passes "
                 "(ROADMAP fault C10); call the model's prefill and "
                 "decode_step with extra_embed=frames instead")
-        self.model = self._plain_model = model
         self.params = params
         self.device = params.device
         self.slots = slots
@@ -122,9 +137,21 @@ class InferenceEngine:
             total_pages=slots * self.max_pages,
             page_tokens=page_tokens,
             bytes_per_token=model.cfg.kv_bytes_per_token)
-        self.cache = model.init_cache(self.kv_pages.total_pages,
-                                      page_tokens, rt, self.device,
+        graphed = graphable(model, params, rt)
+        # the graph path's idle lanes write one scratch page past the
+        # manager's
+        pages = self.kv_pages.total_pages + int(graphed)
+        self.cache = model.init_cache(pages, page_tokens, rt, self.device,
                                       lanes=slots)
+        #: the decode graph (None: the eager, active-lane path)
+        self.decode_graph = None
+        if graphed:
+            self.decode_graph = DecodeGraph(
+                params, self.cache, slots, self.max_pages,
+                scratch=self.kv_pages.total_pages)
+            model = dataclasses.replace(model,
+                                        decode_step=self.decode_graph)
+        self.model = self._plain_model = model
         self.lanes = [Lane() for _ in range(slots)]
         self.queue: list[Request] = []
         self.finished: list[Request] = []
@@ -181,12 +208,17 @@ class InferenceEngine:
             total += float(store.col["kv_in_use"][store.live_slots()].sum())
         return total
 
+    def _replays(self) -> int:
+        graph = self.decode_graph
+        return 0 if graph is None else graph.replays
+
     def _sample(self, t: float, active: int) -> None:
         trace = self._trace
         for name, value in (
                 ("lanes_active", active), ("queue_depth", len(self.queue)),
                 ("kv_used_bytes", self.kv_pages.kv_bytes_in_use()),
-                ("kv_reserved_bytes", self._kv_reserved())):
+                ("kv_reserved_bytes", self._kv_reserved()),
+                ("decode_graph_replays", self._replays())):
             trace.counter(name, TRACK, t, {name: value})
 
     # -- submission ----------------------------------------------------------
@@ -297,6 +329,7 @@ class InferenceEngine:
             decode_span = self._parent = trace.begin(
                 "engine.decode", TRACK, clock(), parent=step_span,
                 args={"lanes": len(active)})
+            replays = self._replays()
             span = trace.begin("engine.tables", TRACK, clock(),
                                parent=decode_span)
         lanes = [self.lanes[i] for i in active]
@@ -349,7 +382,8 @@ class InferenceEngine:
         if trace is not None:
             t = clock()
             trace.end(span, t)
-            trace.end(decode_span, t)
+            trace.end(decode_span, t,
+                      {"graphed": self._replays() > replays})
             self._sample(t, len(active))
             trace.end(step_span, t)
         return produced

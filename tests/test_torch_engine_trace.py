@@ -166,11 +166,16 @@ def test_counters_once_a_decode_step(traced):
     pool_bytes = (eng.kv_pages.total_pages * eng.kv_pages.page_tokens
                   * eng.kv_pages.bytes_per_token)
     for name in ("lanes_active", "queue_depth", "kv_used_bytes",
-                 "kv_reserved_bytes"):
+                 "kv_reserved_bytes", "decode_graph_replays"):
         mine = [(t, v[name]) for n, t, v in samples if n == name]
         assert len(mine) == len(decodes), name
         assert [t for t, _ in mine] == pytest.approx(
             [d.end for d in decodes], abs=1e-9)
+    # on the CPU every step decodes eagerly: no graph, no replay
+    assert eng.decode_graph is None
+    assert all(d.args["graphed"] is False for d in decodes)
+    assert {v["decode_graph_replays"] for n, _, v in samples
+            if n == "decode_graph_replays"} == {0}
     lanes = [v["lanes_active"] for n, _, v in samples if n == "lanes_active"]
     assert lanes == [d.args["lanes"] for d in decodes]
     used = [v["kv_used_bytes"] for n, _, v in samples if n == "kv_used_bytes"]
