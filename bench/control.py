@@ -35,10 +35,10 @@ def main(argv=None) -> int:
     from harness import spec
     spec.process_env(ROOT)
     import torch
-    from harness import cell, check, driver
+    from harness import arch, cell, check, driver
     bench = spec.load_benchmark(ROOT)
     res = spec.resolve(bench, args.workload, ROOT)
-    m = spec.model_dims(res["config"])
+    m = arch.load(res["config"]).harness.dims(res["config"])
     for j, seed in enumerate(int(s) for s in args.seeds.split(",")):
         served = cell.serve(bench, args.workload, res, seed, args.seconds,
                             False, "cuda", log=lambda s: None)

@@ -5,10 +5,8 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import os
-from harness import check, driver, readings, spec, traffic
-from harness import weights as weights_lib
+from harness import arch, check, driver, readings, spec, traffic
 
 METRICS = spec.BENCH / "metrics"
 
@@ -30,12 +28,7 @@ def process_start() -> float:
 def reader(name: str):
     """The reader of metric ``name``: ``bench/metrics/<name>.py``'s
     ``read(records)``, which returns a number or None."""
-    path = METRICS / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name.replace('.', '_').replace('-', '_')}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return spec.module(METRICS / f"{name}.py", "bench_metric").read
 
 
 def metrics(bench: dict, workload: str, records: dict, trace: bool) -> dict:
@@ -145,8 +138,9 @@ def serve(bench: dict, workload: str, resolved: dict, seed: int,
     import torch
     t_start = process_start()
     conf, mix = resolved["config"], resolved["traffic"]
-    m = spec.model_dims(conf)
-    cfg = spec.arch_config(conf)
+    side = arch.load(conf).harness
+    m = side.dims(conf)
+    cfg = side.arch_config(conf)
     serve_conf = conf["serve"]
     cuda = device.startswith("cuda")
     if cuda:
@@ -154,7 +148,7 @@ def serve(bench: dict, workload: str, resolved: dict, seed: int,
         build.build_all()
         torch.set_num_threads(2)
     engine, pool, keys = driver.build(
-        cfg, weights_lib.draw_model(m, seed, device), mix, serve_conf,
+        cfg, side.draw_model(m, seed, device), mix, serve_conf,
         device)
     driver.warm(engine, cfg, mix, serve_conf, device)
     sched = traffic.schedule(mix, seed, seconds)
@@ -220,7 +214,8 @@ def run_cell(bench: dict, workload: str, resolved: dict, seed: int,
     served = serve(bench, workload, resolved, seed, seconds, trace, device,
                    log)
     inputs = served["inputs"]
-    m = spec.model_dims(resolved["config"])
+    conf = resolved["config"]
+    m = arch.load(conf).harness.dims(conf)
     t_ref = driver.clock()
     gaps = check.logit_gaps(inputs, m, seed, device)
     log(f"reference: {len(inputs['seqs'])} judged requests, "

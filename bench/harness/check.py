@@ -3,12 +3,12 @@
 Served tokens.  Once the window has closed and the program's state is
 freed, a sample of the finished requests, drawn from the seed and
 holding the longest, is judged: the plain float32 reference
-(``reference.model``) runs once over each prompt followed by its served
-tokens, and at each served position it reads the gap by which the
-served token's reference logit lies below the reference's best (all
-decoding is greedy).  ``logit_gap`` is the widest such gap (``OUTSIDE``
-where a served id is no token of the vocabulary); a cell's
-limits file names the numbers it compares.  The reference draws the
+(``reference.model`` with the architecture's layer) runs once over each
+prompt followed by its served tokens, and at each served position it
+reads the gap by which the served token's reference logit lies below
+the reference's best (all decoding is greedy).  ``logit_gap`` is the
+widest such gap (``OUTSIDE`` where a served id is no token of the
+vocabulary); a cell's limits file names the numbers it compares.  The reference draws the
 published model's weights again from the seed, layer by layer, as the
 benchmark drew them for the program.
 
@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from harness import arch
 from harness import traffic as traffic_lib
-from harness import weights as weights_lib
 from harness.driver import GUARANTEE_BREACHES, GUARANTEED
 from reference import model as ref_model
 
@@ -78,11 +78,15 @@ def replay_inputs(run, picked: list[str]) -> dict:
 
 def reference_logits(inputs: dict, m: dict, seed: int, device,
                      precision: str = "fp32") -> dict:
+    """The float32 reference's logits (or, with ``precision``, the
+    control's) at the judged positions, from the published weights of
+    ``m``'s architecture drawn again from the seed."""
+    a = arch.load(m)
     seqs = {r: t.to(device) for r, t in inputs["seqs"].items()}
     return ref_model.replay(
-        m, seqs, inputs["judged"],
-        lambda i: weights_lib.published_layer(m, seed, i, device),
-        lambda: weights_lib.published_embed(m, seed, device),
+        a.reference, m, seqs, inputs["judged"],
+        lambda i: a.harness.published_layer(m, seed, i, device),
+        lambda: a.harness.published_head(m, seed, device),
         precision=precision)
 
 

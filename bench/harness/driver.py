@@ -2,8 +2,8 @@
 on the wall clock.
 
 ``build`` brings up ``TokenPool`` → ``Gateway`` → ``InferenceEngine``
-over the program's ``Transformer``, whose weights ``weights.draw_model``
-drew from the seed.  The pool's declared capacity comes from the traffic
+over the program's ``Transformer``, whose weights the architecture's
+``draw_model`` (``harness.arch``) drew from the seed.  The pool's declared capacity comes from the traffic
 file: the engine's lanes as its concurrency, the engine's page pool as
 its KV bytes, a token rate, and the seconds of that rate a token bucket
 holds.  A tenant with ``reserve_lanes`` holds

@@ -23,17 +23,11 @@ PEAK_HBM_BYTES = 3.35e12
 BF16 = 2
 
 
-def layer_params(m: dict) -> float:
-    """Weights of one layer that every token meets: the four attention
-    projections and the three matrices of the SwiGLU MLP."""
-    d, H, G, dh, f = (m["d_model"], m["heads"], m["kv_heads"],
-                      m["head_dim"], m["d_ff"])
-    return d * (H + 2 * G) * dh + H * dh * d + 3.0 * d * f
-
-
 def active_params(m: dict) -> float:
-    """N: non-embedding weights a token meets, over all layers."""
-    return m["layers"] * layer_params(m)
+    """N: non-embedding weights a token meets, over all layers
+    (``layer_params`` is the architecture's count for one layer:
+    ``bench/archs/<model_type>.py``'s ``dims``)."""
+    return m["layers"] * m["layer_params"]
 
 
 def attention_flops(m: dict, queries_keys: float) -> float:

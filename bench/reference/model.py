@@ -1,22 +1,17 @@
-"""Plain float32 forward of the published decoder, replayed over what
+"""The shared pieces of the plain float32 forward, and ``replay``, which
+runs an architecture's layers (``reference/<model_type>.py``) over what
 the timed path served.
-
-The model is the Llama decoder as Hugging Face's ``LlamaForCausalLM``
-computes it, which the benchmark's configuration (SmolLM2-1.7B) names:
-per layer x += attn(rmsnorm(x)) and x += mlp(rmsnorm(x)), RMSNorm as
-x / sqrt(mean(x^2) + eps) * g with the source's eps; attention with
-RoPE (rotate-half, theta from the configuration), grouped or full
-key/value heads, a 1/sqrt(dh) scale and a causal mask; a SwiGLU MLP
-(down(silu(gate(x)) * up(x))); the final RMSNorm and the logits against
-the tied embedding table, over the true vocabulary.  No biases, no
-embedding scale, no soft-capping.  It is given the source's weights
-(``harness.weights.published_layer``/``published_embed``), never the
-program's layout.
 
 ``replay`` computes every layer for every fed position of the given
 sequences at once (teacher forcing: a sequence is its prompt followed by
 the tokens the program served, less the last), layer by layer, so that
-only one layer's weights and the hidden states are held.
+only one layer's weights and the hidden states are held.  The
+architecture's module gives ``layer(x, w, m, mm, segments)``, one
+decoder layer over the concatenated sequences, and ``logits(rows,
+head, m, mm)``, the judged rows' logits over the true vocabulary; the
+embedding is a lookup in the head's ``embed`` table.  It is given the
+source's weights (``published_layer``/``published_head`` of
+``bench/archs/<model_type>.py``), never the program's layout.
 
 ``precision="fp8"`` rounds both inputs of every matrix product to
 float8 e4m3 (each row of the left input and each column of the right
@@ -107,54 +102,50 @@ def mlp(y, w, mm) -> torch.Tensor:
     return out
 
 
-def replay(m: dict, seqs: dict, judged: dict, layer_weights: Callable,
-           embed_final: Callable, precision: str = "fp32") -> dict:
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           theta: float, mm, segments: list) -> torch.Tensor:
+    """q (N, H, dh), k/v (N, G, dh) over the concatenated sequences →
+    (N, H·dh): RoPE at each sequence's own positions and causal
+    attention within it.  ``segments`` holds each sequence's (slice,
+    length)."""
+    N, H, dh = q.shape
+    o = q.new_empty(N, H * dh)
+    for s, n in segments:
+        o[s] = causal_attention(rope(q[s], theta), rope(k[s], theta), v[s],
+                                mm).reshape(n, H * dh)
+    return o
+
+
+def replay(arch, m: dict, seqs: dict, judged: dict, layer_weights: Callable,
+           head: Callable, precision: str = "fp32") -> dict:
     """Logits (n_positions, vocab) at ``judged[rid]`` positions of each
     judged sequence.
 
-    ``seqs`` maps a request id to its fed tokens (a LongTensor);
-    ``layer_weights(i)`` gives layer i's published weights (float32) and
-    ``embed_final()`` the tied table over the true vocabulary and the
-    final norm weight."""
+    ``arch`` is the architecture's reference module; ``seqs`` maps a
+    request id to its fed tokens (a LongTensor); ``layer_weights(i)``
+    gives layer i's published weights and ``head()`` the published head
+    (``embed``, ``final_norm`` and whatever else ``arch.logits`` reads),
+    float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mm = matmul_for(precision)
-    rids = list(seqs)
-    lens = [int(seqs[r].numel()) for r in rids]
-    offset, at = {}, 0
-    for r, n in zip(rids, lens):
+    offset, segments, at = {}, [], 0
+    for r, t in seqs.items():
+        n = int(t.numel())
         offset[r] = at
+        segments.append((slice(at, at + n), n))
         at += n
-    table, final_norm = embed_final()
+    table = head()["embed"]
     dev = table.device
-    x = table[torch.cat([seqs[r] for r in rids]).to(dev)]
+    x = table[torch.cat(list(seqs.values())).to(dev)]
     del table
-    H, G, dh, d = m["heads"], m["kv_heads"], m["head_dim"], m["d_model"]
     for i in range(m["layers"]):
-        w = layer_weights(i)
-        a = w["attn"]
-        h = rmsnorm(x, w["ln1"], m["eps"])
-        q = mm(h, a["wq"].reshape(d, -1))
-        kv = mm(h, torch.cat([a["wk"].reshape(d, -1),
-                              a["wv"].reshape(d, -1)], 1))
-        del h
-        o = torch.empty_like(q)
-        for r, n in zip(rids, lens):
-            s = slice(offset[r], offset[r] + n)
-            qs = rope(q[s].view(n, H, dh), m["rope_theta"])
-            ks = rope(kv[s, :G * dh].view(n, G, dh), m["rope_theta"])
-            vs = kv[s, G * dh:].reshape(n, G, dh)
-            o[s] = causal_attention(qs, ks, vs, mm).reshape(n, H * dh)
-        del q, kv
-        x = x + mm(o, a["wo"].reshape(H * dh, -1))
-        del o
-        x = x + mlp(rmsnorm(x, w["ln2"], m["eps"]), w["mlp"], mm)
-        del w, a
-    table, final_norm = embed_final()
+        x = arch.layer(x, layer_weights(i), m, mm, segments)
+    h = head()
     out = {}
     for r, positions in judged.items():
         rows = x[offset[r] + torch.as_tensor(positions, device=dev)]
-        out[r] = mm(rmsnorm(rows, final_norm, m["eps"]), table.t())
+        out[r] = arch.logits(rows, h, m, mm)
     return out
 
 

@@ -38,18 +38,18 @@ def main(argv=None) -> int:
     from harness import spec
     spec.process_env(ROOT)
     import numpy as np
-    from harness import driver, traffic
-    from harness import weights as weights_lib
+    from harness import arch, driver, traffic
     bench = spec.load_benchmark(ROOT)
     res = spec.resolve(bench, args.workload, ROOT)
     conf, mix = res["config"], res["traffic"]
     serve = conf["serve"]
-    m = spec.model_dims(conf)
-    cfg = spec.arch_config(conf)
+    side = arch.load(conf).harness
+    m = side.dims(conf)
+    cfg = side.arch_config(conf)
     from repro_torch.kernels import build
     build.build_all()
-    engine, _, _ = driver.build(cfg, weights_lib.draw_model(
-        m, args.seed, "cuda"), mix, serve, "cuda")
+    engine, _, _ = driver.build(cfg, side.draw_model(m, args.seed, "cuda"),
+                                mix, serve, "cuda")
     driver.warm(engine, cfg, mix, serve, "cuda")
     for rate in (float(r) for r in args.rates.split(",")):
         sweep = copy.deepcopy(mix)

@@ -18,7 +18,8 @@ for p in (str(BENCH), str(ROOT / "src")):
         sys.path.insert(0, p)
 
 DENSE = {
-    "name": "tiny-dense", "source": "test", "hidden_size": 64,
+    "name": "tiny-dense", "source": "test", "model_type": "llama",
+    "hidden_size": 64,
     "intermediate_size": 128, "num_hidden_layers": 2,
     "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
     "vocab_size": 500, "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
@@ -29,6 +30,12 @@ DENSE = {
 #: the same, with the program's epsilon (no residual scale) and full heads
 MHA = dict(DENSE, name="tiny-mha", num_key_value_heads=4, rms_norm_eps=1e-6,
            program_layout={"rms_norm_eps": 1e-6})
+
+#: the shapes the FLOP and metric tests count by hand, as a configuration
+HAND = {"name": "hand", "model_type": "llama", "num_hidden_layers": 2,
+        "hidden_size": 8, "num_attention_heads": 4, "num_key_value_heads": 2,
+        "head_dim": 2, "intermediate_size": 16, "vocab_size": 10,
+        "rope_theta": 1e4, "rms_norm_eps": 1e-6, "torch_dtype": "bfloat16"}
 
 LENGTHS = {"prompt": {"law": "lognormal", "median": 48, "sigma": 0.6,
                       "min": 16, "max": 128},

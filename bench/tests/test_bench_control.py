@@ -8,7 +8,7 @@ import torch
 
 import bench_tiny_cells as tiny
 from bench_tiny_cells import one_thread  # noqa: F401 (an autouse fixture)
-from harness import cell, check
+from harness import arch, cell, check
 
 #: the tiny cells' ``logit_gap`` limit, between the readings below
 LIMIT = 0.1
@@ -20,7 +20,7 @@ def test_control_fails_the_limit(name, seed):
     res = tiny.resolved(name, LIMIT)
     served = cell.serve(tiny.benchmark(), name, res, seed, 2.0, False, "cpu",
                         log=lambda s: None)
-    m = cell.spec.model_dims(res["config"])
+    m = arch.load(res["config"]).harness.dims(res["config"])
     got = check.control_readings(served["inputs"], m, seed, "cpu", ("fp8",))
     program, control = got["program"], got["fp8"]
     assert program["logit_gap"] <= LIMIT < control["logit_gap"]

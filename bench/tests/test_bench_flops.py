@@ -1,13 +1,16 @@
 """The FLOP and byte counts behind mfu and the kernels' roofline shares,
-against counts made by hand at small shapes."""
+against counts made by hand at small shapes.  The weights a token meets
+in a layer are the architecture's ``layer_params``, read through its
+``dims``."""
 import pytest
 
-import bench_tiny_cells  # noqa: F401  (puts bench/ on sys.path)
+from bench_tiny_cells import HAND
+from harness import arch
 from reference import flops
 
-DENSE = {"layers": 2, "d_model": 8, "heads": 4, "kv_heads": 2,
-         "head_dim": 2, "d_ff": 16, "vocab": 10}
-MHA = dict(DENSE, kv_heads=4, d_ff=3)
+LLAMA = arch.load(HAND).harness
+DENSE = LLAMA.dims(HAND)
+MHA = LLAMA.dims(dict(HAND, num_key_value_heads=4, intermediate_size=3))
 
 
 def test_active_params_by_hand():

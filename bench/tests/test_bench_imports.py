@@ -45,6 +45,14 @@ def test_reference_is_plain(path):
                      "reference"}
 
 
+def test_each_architecture_reference_is_checked():
+    """Every architecture's plain forward is among the files held plain
+    above."""
+    plain = {p.name for p in SOURCES if "reference" in p.parts}
+    archs = {p.name for p in (tiny.BENCH / "archs").glob("*.py")}
+    assert {"model.py", "llama.py", "qwen3.py"} | archs <= plain
+
+
 def test_whole_names():
     assert "repro_torch".split(".")[0] not in FORBIDDEN
     assert "repro.core".split(".")[0] in FORBIDDEN

@@ -2,11 +2,11 @@
 window that moves the tails and leaves the medians."""
 import pytest
 
-import bench_tiny_cells  # noqa: F401  (puts bench/ on sys.path)
+from bench_tiny_cells import HAND
+from harness import arch
 from harness.cell import reader
 
-DIMS = {"layers": 2, "d_model": 8, "heads": 4, "kv_heads": 2,
-        "head_dim": 2, "d_ff": 16, "vocab": 10}
+DIMS = arch.load(HAND).harness.dims(HAND)
 
 
 def request(tenant, klass, due, tokens, admitted=True, prompt=100,

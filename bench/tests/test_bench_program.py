@@ -9,8 +9,7 @@ import pytest
 
 import bench_tiny_cells as tiny
 from bench_tiny_cells import one_thread  # noqa: F401 (an autouse fixture)
-from harness import cell, driver, program, spec, traffic
-from harness import weights as weights_lib
+from harness import arch, cell, driver, program, traffic
 from harness.cell import reader
 from harness.trace import Tracer
 
@@ -126,10 +125,10 @@ def test_a_tiny_traced_run_agrees_with_the_harness(name):
     from repro_torch.telemetry import Telemetry
     res = tiny.resolved(name)
     conf, mix, seed, seconds = res["config"], res["traffic"], 2**31 + 7, 2.0
-    m, cfg, serve = spec.model_dims(conf), spec.arch_config(conf), \
-        conf["serve"]
+    side = arch.load(conf).harness
+    m, cfg, serve = side.dims(conf), side.arch_config(conf), conf["serve"]
     engine, pool, keys = driver.build(
-        cfg, weights_lib.draw_model(m, seed, "cpu"), mix, serve, "cpu")
+        cfg, side.draw_model(m, seed, "cpu"), mix, serve, "cpu")
     driver.warm(engine, cfg, mix, serve, "cpu")
     sched = traffic.schedule(mix, seed, seconds)
     tracer = CpuTracer(seconds)
