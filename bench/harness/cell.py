@@ -62,6 +62,7 @@ def records(run, m: dict, serve: dict, setup_s: float, tracer) -> dict:
         "trace": (dataclasses.asdict(tracer.trace)
                   if tracer is not None and tracer.trace is not None
                   else None),
+        "program": tracer.program if tracer is not None else None,
     }
 
 
@@ -113,10 +114,11 @@ def tail_lines(run, recs: dict) -> list[str]:
 
 
 def launch_counts() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_attention
-    return {"flash": dict(flash_attention.route_launches),
-            "paged": dict(paged_attention.route_launches)}
+    """Each kernel's launches by route, from the program's registry of
+    kernel entry points."""
+    from repro_torch.kernels import launch_counts as counts
+    return {k: c["route_launches"] for k, c in counts().items()
+            if "route_launches" in c}
 
 
 def failed_requests(run) -> int:
@@ -178,7 +180,8 @@ def serve(bench: dict, workload: str, resolved: dict, seed: int,
     for line in tenant_lines(run) + tail_lines(run, recs):
         log(line)
     log("launches in the window by route: " + str({
-        k: {r: after[k][r] - before[k][r] for r in after[k]} for k in after}))
+        k: {r: n - before[k].get(r, 0) for r, n in after[k].items()}
+        for k in after}))
     log(f"setup_s {setup_s} memory_peak_bytes {peak}")
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
@@ -198,6 +201,11 @@ def serve(bench: dict, workload: str, resolved: dict, seed: int,
                 f"prefills {len(tr['prefill_tokens'])} decode steps "
                 f"{len(tr['decode_contexts'])} kernels "
                 f"{sum(tr['kernel_n'].values())}")
+        prog = recs["program"]
+        if prog:
+            log(f"program: spans {len(prog['spans'])} counter samples "
+                f"{len(prog['counters'])} dropped {prog['dropped']}; "
+                f"idle by span {tr['idle_by_span'] if tr else None}")
     # the program's state goes before the reference runs
     del engine, pool, run, tracer, keys, opened, prompts, sched, recs
     gc.collect()

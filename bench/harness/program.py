@@ -10,10 +10,10 @@ record, or None where the run has none or the program's trace dropped
 events; :func:`idle_by_span` charges the device's idle gaps to the
 innermost program span open at each gap's midpoint.
 
-A run records them once the engine's telemetry is set before the
-harness wraps ``engine.model`` (so the program's ``model.*`` spans sit
-inside the harness's synchronised ones) and the record is put under
-``"program"``.
+A traced run records them: ``harness.trace.Tracer`` sets the engine's
+telemetry before it wraps ``engine.model`` (so the program's ``model.*``
+spans sit inside the harness's synchronised ones) and reads the record
+once the run is over; an untraced run has none (``"program"`` None).
 """
 from __future__ import annotations
 

@@ -4,15 +4,21 @@ layer, and the device trace of a slice of the window.
 Spans are host times (``driver.clock``) taken by wrappers that the
 harness puts around ``Gateway.handle``, ``Model.prefill``,
 ``Model.decode_step`` (each ending in a synchronise) and
-``InferenceEngine._start`` on the objects of this run; nothing inside
-the program changes.  ``torch.profiler`` records the device's
+``InferenceEngine._start`` on the objects of this run.  Before it wraps
+them, the harness sets the engine's telemetry, so the program records
+its own spans and counters (``harness.program``) on the same clock, its
+``model.*`` spans inside the harness's synchronised ones; an untraced
+run leaves the telemetry off.  ``torch.profiler`` records the device's
 operations (CUDA activity only) from the first step boundary after a
 third of the window to the first after its close; the kernels are
 summed in memory, by name, once the window is over, and no trace file
 is written.  A first, empty profiling session during set-up starts the
 profiler's machinery, so that starting it in the window costs little.
 The host clock and the profiler's clock are tied by a marker kernel
-launched on an idle device right after the profiler starts.
+launched on an idle device right after the profiler starts.  Each
+idle gap of the device is charged twice: to the harness's phase open at
+its midpoint (``idle_by_phase``, the breakdown's) and to the innermost
+program span open there, else that phase (``idle_by_span``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import bisect
 import dataclasses
 from typing import Optional
 
+from harness import program
 from harness.driver import clock
 
 #: host phases, innermost first, that an idle gap of the device is
@@ -35,6 +42,7 @@ class Trace:
     kernel_s: dict
     kernel_n: dict
     idle_by_phase: dict
+    idle_by_span: Optional[dict]
     prefill_tokens: list
     decode_contexts: list
 
@@ -53,6 +61,9 @@ class Tracer:
         self.prefill_tokens: list[int] = []
         self.decode_contexts: list[list[int]] = []
         self.trace: Optional[Trace] = None
+        #: the engine's telemetry, and its record once the run is over
+        self.tel = None
+        self.program: Optional[dict] = None
 
     @property
     def active(self) -> bool:
@@ -60,10 +71,13 @@ class Tracer:
 
     # -- instrumentation ----------------------------------------------------
     def instrument(self, run) -> None:
-        """Wrap the calls into each layer of ``run``'s engine."""
+        """Set the telemetry of ``run``'s engine, then wrap the calls
+        into each layer of it."""
         import dataclasses as dc
+        from repro_torch.telemetry import Telemetry
         torch = self.torch
         eng = run.engine
+        eng.telemetry = self.tel = Telemetry()
         handle = eng.gateway.handle
 
         def timed_handle(*a, **k):
@@ -141,7 +155,10 @@ class Tracer:
             self.prof.__exit__(None, None, None)
 
     def finish(self) -> None:
-        """Sum the traced kernels, after the window."""
+        """Read the program's record and sum the traced kernels, after
+        the window."""
+        if self.tel is not None:
+            self.program = program.records(self.tel)
         if self.prof is not None and self.h1 is not None:
             self.trace = self.summarise()
         self.prof = None
@@ -164,7 +181,7 @@ class Tracer:
         kernel_s: dict[str, float] = {}
         kernel_n: dict[str, int] = {}
         busy = 0.0
-        idle: dict[str, float] = {}
+        gaps = []           # (host midpoint, seconds)
         phases = {p: sorted(self.host[p]) for p in PHASES}
         starts = {p: [s for s, _ in phases[p]] for p in PHASES}
         end = lo
@@ -175,16 +192,24 @@ class Tracer:
             if b <= a:
                 continue
             if a > end:
-                who = self.phase((end + a) / 2.0 - offset, phases, starts)
-                idle[who] = idle.get(who, 0.0) + (a - end)
+                gaps.append(((end + a) / 2.0 - offset, a - end))
             if b > end:
                 busy += b - max(a, end)
                 end = b
         if hi > end:
-            who = self.phase((end + hi) / 2.0 - offset, phases, starts)
-            idle[who] = idle.get(who, 0.0) + (hi - end)
+            gaps.append(((end + hi) / 2.0 - offset, hi - end))
+        idle: dict[str, float] = {}
+        for mid, length in gaps:
+            who = self.phase(mid, phases, starts)
+            idle[who] = idle.get(who, 0.0) + length
+        by_span = None
+        if self.program is not None:
+            by_span = program.idle_by_span(
+                gaps, self.program,
+                lambda t: self.phase(t, phases, starts))
         return Trace(self.h1 - self.h0, busy, kernel_s, kernel_n, idle,
-                     list(self.prefill_tokens), list(self.decode_contexts))
+                     by_span, list(self.prefill_tokens),
+                     list(self.decode_contexts))
 
     @staticmethod
     def phase(t: float, phases: dict, starts: dict) -> str:

@@ -7,13 +7,14 @@ drew and computed before its Llama code moved into them
 from that harness at the tiny configurations)."""
 import hashlib
 import json
+import shutil
 
 import pytest
 import torch
 
 import bench_tiny_cells as tiny
 from bench_tiny_cells import one_thread  # noqa: F401 (an autouse fixture)
-from harness import arch
+from harness import arch, spec
 from reference import model as ref_model
 
 GOLDEN = json.loads((tiny.BENCH / "tests" / "golden_llama.json").read_text())
@@ -84,13 +85,22 @@ def test_unknown_model_type_names_both_files():
     assert "bench/reference/mamba.py" in str(e.value)
 
 
-def test_qwen3_needs_only_its_harness_side():
-    """The plain Qwen3 forward is here; a Qwen3 configuration needs
-    ``bench/archs/qwen3.py`` and nothing else of code."""
+def test_qwen3_needs_only_its_harness_side(tmp_path):
+    """The plain Qwen3 forward is committed; a Qwen3 configuration needs
+    ``bench/archs/qwen3.py`` and nothing else of code.  Held on a copy
+    of the benchmark's architectures without that file, so that it holds
+    before and after the file is added."""
+    bench = tmp_path / "bench"
+    shutil.copytree(tiny.BENCH / "reference", bench / "reference")
+    shutil.copytree(tiny.BENCH / "archs", bench / "archs")
+    (bench / "archs" / "qwen3.py").unlink(missing_ok=True)
     with pytest.raises(ValueError) as e:
-        arch.load(dict(tiny.DENSE, model_type="qwen3"))
+        arch.load(dict(tiny.DENSE, model_type="qwen3"), bench=bench)
     assert "bench/archs/qwen3.py" in str(e.value)
     assert "reference/qwen3.py" not in str(e.value)
+    plain = spec.module(tiny.BENCH / "reference" / "qwen3.py",
+                        "bench_reference")
+    assert all(callable(getattr(plain, f)) for f in REFERENCE)
 
 
 def test_a_new_architecture_is_new_files(tmp_path):

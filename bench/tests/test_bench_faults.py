@@ -8,6 +8,7 @@ import torch
 
 import bench_tiny_cells as tiny
 from bench_tiny_cells import one_thread  # noqa: F401 (an autouse fixture)
+from harness import spec
 from harness.cell import run_cell
 from repro_torch.models import transformer
 
@@ -47,21 +48,26 @@ def altered_token(params, tokens, cache, tables, positions, lanes=None,
     return out
 
 
-def run(cell, monkeypatch, fault=None):
+def run(cell, monkeypatch, fault=None, bench=None):
     if fault is not None:
         monkeypatch.setattr(transformer, "decode_step", fault)
-    return run_cell(tiny.benchmark(), cell, tiny.resolved(cell),
+    return run_cell(bench or tiny.benchmark(), cell, tiny.resolved(cell),
                     2**31 + 101, 2.0, False, "cpu", log=lambda s: None)
 
 
 @pytest.mark.parametrize("cell", sorted(tiny.CELLS))
 def test_sound_run_is_correct(cell, monkeypatch):
-    out = run(cell, monkeypatch)
+    """Correct, judged by the cell's limits, and reporting the
+    end-to-end metrics that ``BENCHMARK.json`` gives the cell (those of
+    cells added later are theirs)."""
+    bench = spec.load_benchmark()
+    out = run(cell, monkeypatch, bench=bench)
     assert out["correct"], out["compare"]
     assert list(out["compare"]) == list(tiny.limits(cell)) + [
         "guarantee_breaches"]
-    assert set(out["metrics"]) == {m["name"] for m in
-                                   tiny.benchmark()["end_to_end"]}
+    assert set(out["metrics"]) == {
+        m["name"] for m in bench["end_to_end"]
+        if cell in m.get("workloads", [cell])}
 
 
 @pytest.mark.parametrize("fault", [frozen_state, half_batch, altered_token],
