@@ -2312,7 +2312,7 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
     def timed_prefill(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = model.prefill(*a, **kw)
+        out = engine_prefill(*a, **kw)
         torch.cuda.synchronize()
         prefill_ms.append((a[1].shape[1], 1e3 * (time.perf_counter() - t)))
         return out
@@ -2324,16 +2324,18 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
     try:
         pool, gw = build_gateway(cfg, slots, max_tokens, "cuda")
         eng = serving.InferenceEngine(
-            dataclasses.replace(model, prefill=timed_prefill), params,
-            slots=slots, max_seq=max_seq, gateway=gw, page_tokens=page)
-        # the engine's decode steps, counted on top of its decode graph
+            model, params, slots=slots, max_seq=max_seq, gateway=gw,
+            page_tokens=page)
+        # the engine's prefills timed and its decode steps counted, on
+        # top of its graphs
         decode_calls = [0]
+        engine_prefill = eng.model.prefill
         graph_decode = eng.model.decode_step
 
         def counted_decode(*a, **kw):
             decode_calls[0] += 1
             return graph_decode(*a, **kw)
-        eng.model = dataclasses.replace(eng.model,
+        eng.model = dataclasses.replace(eng.model, prefill=timed_prefill,
                                         decode_step=counted_decode)
         spec = workload(np, seed, n_requests, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
@@ -2353,7 +2355,8 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
     finally:
         fa_mod.reference_attention, pa_mod.reference_paged_attention = saved
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    graphs_txt = check_decode_graph(eng, decode_calls[0], True, "serve")
+    graphs_txt = check_decode_graph(eng, decode_calls[0], True, "serve",
+                                    prefills=len(prefill_ms))
 
     check(launches["flash_prefill"] > 0 and launches["paged_decode"] > 0,
           f"serve: a kernel never launched on the serve path: {launches}")
@@ -2427,23 +2430,35 @@ def phase_serve(torch, np, seed: int, n_requests: int) -> dict:
             "engine": eng, "model": model, "params": params, "cfg": cfg}
 
 
-def check_decode_graph(eng, calls: int, graphed: bool, what: str) -> str:
-    """That ``eng`` decodes through its decode graphs where ``graphed``
-    (each row count captured once, one replay for each of its ``calls``
-    decode calls) and eagerly elsewhere.  Returns the report's text."""
-    graph = eng.decode_graph
-    check((graph is not None) == graphed,
+def check_decode_graph(eng, calls: int, graphed: bool, what: str,
+                       prefills=None) -> str:
+    """That ``eng`` decodes through its decode graphs and prefills
+    through its prefill graphs where ``graphed`` (each row count and
+    each length bucket captured once, one replay for each of its
+    ``calls`` decode calls and, where given, its ``prefills`` prefill
+    calls) and eagerly elsewhere.  Returns the report's text."""
+    graph, pre = eng.decode_graph, eng.prefill_graph
+    check((graph is not None) == (pre is not None) == graphed,
           f"{what}: the engine decodes "
-          f"{'eagerly' if graph is None else 'through the decode graphs'}, "
+          f"{'eagerly' if graph is None else 'through the decode graphs'}"
+          f" and prefills "
+          f"{'eagerly' if pre is None else 'through the prefill graphs'}, "
           f"which its model should not")
     if graph is None:
-        return "decode eager (the active lanes)"
+        return "decode eager (the active lanes), prefill eager"
     check(graph.captures == len(graph.graphs) and graph.replays == calls,
           f"{what}: {calls} decode calls, the decode graphs replayed "
           f"{graph.replays} times and captured {graph.captures} times at "
           f"rows {sorted(graph.graphs)}")
+    check(pre.captures == len(pre.graphs) and pre.replays > 0
+          and prefills in (None, pre.replays),
+          f"{what}: {prefills} prefill calls, the prefill graphs replayed "
+          f"{pre.replays} times and captured {pre.captures} times at "
+          f"buckets {sorted(pre.graphs)}")
     return (f"decode graphs at rows {sorted(graph.graphs)}: "
-            f"{graph.captures} captures, {graph.replays} replays")
+            f"{graph.captures} captures, {graph.replays} replays; prefill "
+            f"graphs at buckets {sorted(pre.graphs)}: {pre.captures} "
+            f"captures, {pre.replays} replays")
 
 
 def serve_graph_check(torch, np, serving, build_gateway, model, params,
@@ -2962,7 +2977,7 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
         n0 = fa_mod.flash_attention.launches
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = model.prefill(*a, **kw)
+        out = engine_prefill(*a, **kw)
         torch.cuda.synchronize()
         S = a[1].shape[1]
         prefill_ms.append((S, 1e3 * (time.perf_counter() - t)))
@@ -3024,10 +3039,12 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
         pool, gw = build_gateway(cfg, slots, max_tokens, "cuda",
                                  kv_bytes=kv_bytes)
         eng = serving.InferenceEngine(
-            dataclasses.replace(model, prefill=timed_prefill), params,
-            slots=slots, max_seq=max_seq, gateway=gw, page_tokens=page)
+            model, params, slots=slots, max_seq=max_seq, gateway=gw,
+            page_tokens=page)
+        engine_prefill = eng.model.prefill
         engine_decode = eng.model.decode_step
-        eng.model = dataclasses.replace(eng.model, decode_step=timed_decode)
+        eng.model = dataclasses.replace(eng.model, prefill=timed_prefill,
+                                        decode_step=timed_decode)
         spec = family_workload(np, seed + 5, cfg.vocab_size, long, short, n)
         for fn in (fa_mod.flash_attention, pa_mod.paged_attention):
             fn.launches = 0
@@ -3044,7 +3061,8 @@ def serve_family(torch, np, seed: int, arch: str, max_seq: int,
         moe_mod._dispatch_indices = dispatch
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     graph_txt = check_decode_graph(eng, decode_calls[0],
-                                   arch in FAMILY_GRAPHED, f"families {arch}")
+                                   arch in FAMILY_GRAPHED, f"families {arch}",
+                                   prefills=len(prefill_ms))
 
     fin = [r for r in reqs if r.state.value == "finished"]
     check(len(fin) == len(reqs), f"families {arch}: "

@@ -607,11 +607,17 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
 def prefill(model: Transformer, tokens: torch.Tensor, cache: PagedKVCache,
             block_tables: torch.Tensor, lanes: Optional[torch.Tensor] = None,
             extra_embed: Optional[torch.Tensor] = None,
-            rt: Runtime = LOCAL) -> torch.Tensor:
+            rt: Runtime = LOCAL,
+            last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,S) prompt tokens → (B,1,V_padded) last-position logits.
 
     Every attention layer's K/V for positions 0..S-1 is written into the
-    pages that ``block_tables`` (B, max_pages) names.  Each recurrent
+    pages that ``block_tables`` (B, max_pages) names.  ``last`` (a (1,)
+    int64 tensor on the device) names the position whose logits are
+    returned, for a prompt padded at its end past it (default S-1): in a
+    model of attention layers with dense MLPs the attention is causal
+    and the rest works row by row, so the rows up to ``last`` compute
+    what the unpadded prompt does.  Each recurrent
     layer runs from the state in rows ``lanes`` (B,) (default 0..B-1;
     the engine resets a row before a new prompt, as the reference starts
     from a fresh cache) and leaves its final state there.  With
@@ -631,7 +637,8 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: PagedKVCache,
                                              cache.layout), rt)
         else:
             x = _recurrent(layer, x, cfg, cache.state[j], rows, False, rt)
-    return _logits(model, x[:, -1:, :], rt)
+    x = x[:, -1:, :] if last is None else x.index_select(1, last)
+    return _logits(model, x, rt)
 
 
 @torch.no_grad()

@@ -38,9 +38,10 @@ pools and the static inputs, so they belong to one engine's ``params``
 and ``cache``; a call with other ones, another table width or more rows
 than lanes raises.
 
-Which engines take it (:func:`graphable`): parameters on CUDA, an
-unsharded runtime, the library's own ``decode_step``, and every layer
-an attention layer with a dense MLP.  A MoE layer's expert capacity
+Which engines take it (:func:`graphable`, which also chooses the
+prefill graphs of ``prefill_graph``): parameters on CUDA, an unsharded
+runtime, the library's own ``prefill`` and ``decode_step``, and every
+layer an attention layer with a dense MLP.  A MoE layer's expert capacity
 depends on the number of rows (fault C9), so a padded row would take
 capacity from live ones; a recurrent layer gathers its lanes' state
 rows; a sharded step runs host-staged collectives.  Those decode
@@ -59,14 +60,16 @@ import torch
 from repro_torch.kernels import (add_launches, launch_counts,
                                  launches_between, set_launch_counts)
 from repro_torch.models.runtime import LOCAL, Runtime
-from repro_torch.models.transformer import ATTN_KINDS, decode_step
+from repro_torch.models.transformer import ATTN_KINDS, decode_step, prefill
 
 
 def graphable(model, params, rt: Runtime) -> bool:
     """Whether an engine serving ``model`` over ``params`` under ``rt``
-    decodes through a :class:`DecodeGraph`."""
+    decodes through a :class:`DecodeGraph` and prefills through a
+    ``prefill_graph.PrefillGraph``."""
     return (params.device.type == "cuda" and not rt.sharded
             and model.decode_step is decode_step
+            and model.prefill is prefill
             and all(layer.kind in ATTN_KINDS and not layer.is_moe
                     for layer in params.layers))
 
@@ -85,24 +88,14 @@ def row_counts(slots: int) -> list[int]:
     return sizes + [slots] if sizes[-1] < slots else sizes
 
 
-class DecodeGraph:
-    """``decode_step(params, tokens, cache, block_tables, positions,
-    lanes, rt)`` through a CUDA graph per row count over ``slots``
-    lanes (see the module docstring).  ``scratch`` is the page idle rows
-    write."""
+class StepGraphs:
+    """CUDA graphs of one step, one for each of its sizes, in one memory
+    pool and captured on one side stream; a subclass loads the static
+    inputs and names the step of a size (:meth:`step`)."""
 
-    def __init__(self, params, cache, slots: int, max_pages: int,
-                 scratch: int) -> None:
-        dev = params.device
+    def __init__(self, params, cache) -> None:
         self.params, self.cache = params, cache
-        self.sizes = row_counts(slots)
-        self.tokens = torch.zeros((slots, 1), dtype=torch.long, device=dev)
-        self.positions = torch.zeros((slots,), dtype=torch.int32, device=dev)
-        self.idle_table = torch.full((max_pages,), -1, dtype=torch.int32,
-                                     device=dev)
-        self.idle_table[0] = scratch
-        self.tables = self.idle_table.repeat(slots, 1)
-        #: by row count: the graph, its logits, its launches a replay
+        #: by size: the graph, its output, its launches a replay
         self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
         self.logits: dict[int, torch.Tensor] = {}
         self.launches: dict[int, dict] = {}
@@ -110,6 +103,75 @@ class DecodeGraph:
         #: first capture)
         self.pool = self.stream = None
         self.captures = self.replays = 0
+
+    def step(self, size: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def check(self, params, cache) -> None:
+        if params is not self.params or cache is not self.cache:
+            raise ValueError(f"{type(self).__name__}: the graphs read the "
+                             "parameters and the cache they were built over")
+
+    def capture(self, size: int) -> None:
+        """Capture :meth:`step` on the side stream (warmed up there
+        first, the first time)."""
+        saved = launch_counts()
+        dev = self.params.device
+        stream = self.stream
+        if stream is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            stream = self.stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self.step(size)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin/end without ``torch.cuda.graph``'s synchronise
+        # and emptying of the allocator's caches before every capture,
+        # which a set-up of many captures in a row would pay each time
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                before = launch_counts()
+                self.logits[size] = self.step(size)
+                after = launch_counts()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.launches[size] = launches_between(before, after)
+        set_launch_counts(saved)
+        self.graphs[size] = graph
+        self.captures += 1
+
+    def replay(self, size: int) -> torch.Tensor:
+        """Replay the graph of ``size`` (captured first, on its first
+        use) over the static inputs as loaded; its output, which the
+        next replay overwrites."""
+        if size not in self.graphs:
+            self.capture(size)
+        self.graphs[size].replay()
+        self.replays += 1
+        add_launches(self.launches[size])
+        return self.logits[size]
+
+
+class DecodeGraph(StepGraphs):
+    """``decode_step(params, tokens, cache, block_tables, positions,
+    lanes, rt)`` through a CUDA graph per row count over ``slots``
+    lanes (see the module docstring).  ``scratch`` is the page idle rows
+    write."""
+
+    def __init__(self, params, cache, slots: int, max_pages: int,
+                 scratch: int) -> None:
+        super().__init__(params, cache)
+        dev = params.device
+        self.sizes = row_counts(slots)
+        self.tokens = torch.zeros((slots, 1), dtype=torch.long, device=dev)
+        self.positions = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.idle_table = torch.full((max_pages,), -1, dtype=torch.int32,
+                                     device=dev)
+        self.idle_table[0] = scratch
+        self.tables = self.idle_table.repeat(slots, 1)
 
     def rows_for(self, n: int) -> int:
         """The fewest rows of a graph that holds ``n`` lanes."""
@@ -135,39 +197,13 @@ class DecodeGraph:
         return decode_step(self.params, self.tokens[:rows], self.cache,
                            self.tables[:rows], self.positions[:rows])
 
-    def capture(self, rows: int) -> None:
-        """Capture :meth:`step` on the side stream (warmed up there
-        first, the first time)."""
-        saved = launch_counts()
-        dev = self.tokens.device
-        stream = self.stream
-        if stream is None:
-            self.pool = torch.cuda.graph_pool_handle()
-            stream = self.stream = torch.cuda.Stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                self.step(rows)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-            before = launch_counts()
-            self.logits[rows] = self.step(rows)
-            after = launch_counts()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self.launches[rows] = launches_between(before, after)
-        set_launch_counts(saved)
-        self.graphs[rows] = graph
-        self.captures += 1
-
     def __call__(self, params, tokens: torch.Tensor, cache,
                  block_tables: torch.Tensor, positions: torch.Tensor,
                  lanes=None, rt: Runtime = LOCAL) -> torch.Tensor:
         """(B, 1, V) logits of the call's B lanes, in their order.
         ``lanes`` and ``rt`` are the engine's, which :func:`graphable`
         judged when it chose this path; the rows do not read them."""
-        if params is not self.params or cache is not self.cache:
-            raise ValueError("DecodeGraph: the graphs read the parameters "
-                             "and the cache they were built over")
+        self.check(params, cache)
         if block_tables.shape[1] != self.tables.shape[1]:
             raise ValueError(f"DecodeGraph: block tables of "
                              f"{block_tables.shape[1]} pages, the graphs' "
@@ -175,9 +211,4 @@ class DecodeGraph:
         n = tokens.shape[0]
         rows = self.rows_for(n)
         self.load(tokens, block_tables, positions, rows)
-        if rows not in self.graphs:
-            self.capture(rows)
-        self.graphs[rows].replay()
-        self.replays += 1
-        add_launches(self.launches[rows])
-        return self.logits[rows][:n].clone()
+        return self.replay(rows)[:n].clone()

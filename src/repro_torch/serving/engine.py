@@ -23,23 +23,33 @@ token and position.  This engine takes one of two paths, chosen once
 from what it is given (``decode_graph.graphable``):
 
 * the graph path — parameters on CUDA, an unsharded runtime, the
-  library's own ``decode_step`` and only attention layers with dense
-  MLPs: every step replays a CUDA graph of the fewest rows
-  (``decode_graph.row_counts``) that holds the active lanes
+  library's own ``prefill`` and ``decode_step`` and only attention
+  layers with dense MLPs: every step replays a CUDA graph of the fewest
+  rows (``decode_graph.row_counts``) that holds the active lanes
   (``decode_graph.DecodeGraph``, ``self.decode_graph``), the lanes in
   its first rows and the rest padded with token 0 at position 0 over a
   scratch page that the cache holds past the ``KVBlockManager``'s
   pages, their logits dropped.  Rows of such a model do not interact,
-  so each active lane's logits are the active-lane decode's;
+  so each active lane's logits are the active-lane decode's.  Every
+  prompt's prefill replays a CUDA graph of the smallest length bucket
+  (``prefill_graph.buckets``) that holds it
+  (``prefill_graph.PrefillGraph``, ``self.prefill_graph``), padded at
+  its end with token 0, the padded positions' K/V past the prompt in
+  its last page or on the scratch page, the logits taken at its last
+  real position; the attention is causal, so the real rows are the
+  unpadded prefill's;
 * the eager path — everything else: the active lanes only, in one
-  batched call.  For MoE the two differ: the expert capacity
-  ``C = max(1, int(T·k/E·cf))`` depends on the token count T, and the
-  dispatch's stable sort gives an expert's slots to the lower lanes
-  first, so in the reference a finished request's stale lane takes
-  expert capacity from the live lanes above it.  Copying that would
-  mean decoding stale lanes over a stale cache; the port keeps the
-  active-lane decode, and equals the reference wherever every lane is
-  active (``tests/test_torch_families.py`` shows both sides).
+  batched call, and each prompt prefilled at its own length (padded
+  positions would take a MoE layer's capacity and advance a recurrent
+  state past the prompt).  For MoE the two paths' decodes differ: the
+  expert capacity ``C = max(1, int(T·k/E·cf))`` depends on the token
+  count T, and the dispatch's stable sort gives an expert's slots to
+  the lower lanes first, so in the reference a finished request's
+  stale lane takes expert capacity from the live lanes above it.
+  Copying that would mean decoding stale lanes over a stale cache; the
+  port keeps the active-lane decode, and equals the reference wherever
+  every lane is active (``tests/test_torch_families.py`` shows both
+  sides).
 
 Recurrent layers (rglru, mlstm, slstm) keep their state per lane, in
 row ``lane`` of the cache's state tensors: ``_start`` resets the row
@@ -58,7 +68,10 @@ default, and then nothing is recorded).  On the host clock
 (``Telemetry.clock``), on the ``engine`` track::
 
     engine.step                 queue_depth, lanes_active
-    ├── engine.prefill          rid, lane, prompt_tokens
+    ├── engine.prefill          rid, lane, prompt_tokens; at its end
+    │   │                       graphed (the prefill replayed a prefill
+    │   │                       graph), bucket and padded_tokens (bucket
+    │   │                       − prompt_tokens; eager: the prompt, 0)
     │   ├── model.prefill       + the device interval
     │   └── engine.first_token  argmax + int(); instant first_token (rid)
     └── engine.decode           lanes, graphed (the step replayed the
@@ -74,9 +87,9 @@ default, and then nothing is recorded).  On the host clock
 from its end to the start of the request's ``engine.prefill``.  Each
 decode step samples the counters ``lanes_active``, ``queue_depth``,
 ``kv_used_bytes`` (the pages held), ``kv_reserved_bytes`` (the KV the
-gateway's pools charged at admission, summed over their live rows) and
-``decode_graph_replays`` (the decode graph's replays so far; 0 on the
-eager path).
+gateway's pools charged at admission, summed over their live rows),
+``decode_graph_replays`` and ``prefill_graph_replays`` (the decode and
+prefill graphs' replays so far; 0 on the eager path).
 The ``model.*`` spans are taken in a copy of the ``Model`` whose
 ``prefill`` and ``decode_step`` record them, swapped in when the
 telemetry is set: they bracket only the call into the model, and sit
@@ -99,6 +112,7 @@ from repro_torch.gateway import Gateway
 from repro_torch.models import Model, Runtime
 from repro_torch.serving.decode_graph import DecodeGraph, graphable
 from repro_torch.serving.kv_manager import KVBlockManager
+from repro_torch.serving.prefill_graph import PrefillGraph
 from repro_torch.serving.request import Request, RequestState
 
 #: the tracks of the engine's spans
@@ -138,18 +152,20 @@ class InferenceEngine:
             page_tokens=page_tokens,
             bytes_per_token=model.cfg.kv_bytes_per_token)
         graphed = graphable(model, params, rt)
-        # the graph path's idle lanes write one scratch page past the
-        # manager's
-        pages = self.kv_pages.total_pages + int(graphed)
-        self.cache = model.init_cache(pages, page_tokens, rt, self.device,
-                                      lanes=slots)
-        #: the decode graph (None: the eager, active-lane path)
-        self.decode_graph = None
+        # the graph path's idle lanes and padded prompt positions write
+        # one scratch page past the manager's
+        scratch = self.kv_pages.total_pages
+        self.cache = model.init_cache(scratch + int(graphed), page_tokens,
+                                      rt, self.device, lanes=slots)
+        #: the decode and prefill graphs (None: the eager path)
+        self.decode_graph = self.prefill_graph = None
         if graphed:
             self.decode_graph = DecodeGraph(
-                params, self.cache, slots, self.max_pages,
-                scratch=self.kv_pages.total_pages)
-            model = dataclasses.replace(model,
+                params, self.cache, slots, self.max_pages, scratch)
+            self.prefill_graph = PrefillGraph(
+                params, self.cache, max_seq, page_tokens, self.max_pages,
+                scratch)
+            model = dataclasses.replace(model, prefill=self.prefill_graph,
                                         decode_step=self.decode_graph)
         self.model = self._plain_model = model
         self.lanes = [Lane() for _ in range(slots)]
@@ -208,8 +224,8 @@ class InferenceEngine:
             total += float(store.col["kv_in_use"][store.live_slots()].sum())
         return total
 
-    def _replays(self) -> int:
-        graph = self.decode_graph
+    @staticmethod
+    def _replays(graph) -> int:
         return 0 if graph is None else graph.replays
 
     def _sample(self, t: float, active: int) -> None:
@@ -218,7 +234,9 @@ class InferenceEngine:
                 ("lanes_active", active), ("queue_depth", len(self.queue)),
                 ("kv_used_bytes", self.kv_pages.kv_bytes_in_use()),
                 ("kv_reserved_bytes", self._kv_reserved()),
-                ("decode_graph_replays", self._replays())):
+                ("decode_graph_replays", self._replays(self.decode_graph)),
+                ("prefill_graph_replays",
+                 self._replays(self.prefill_graph))):
             trace.counter(name, TRACK, t, {name: value})
 
     # -- submission ----------------------------------------------------------
@@ -275,6 +293,7 @@ class InferenceEngine:
             span = self._parent = trace.begin(
                 "engine.prefill", TRACK, t, parent=self._step, rid=rid,
                 args={"lane": lane_idx, "prompt_tokens": req.input_len})
+            replays = self._replays(self.prefill_graph)
         lane = self.lanes[lane_idx]
         self.kv_pages.allocate(req.request_id, req.input_len)
         tokens = torch.tensor([req.prompt_tokens], dtype=torch.long,
@@ -300,7 +319,12 @@ class InferenceEngine:
         lane.last_token = first
         self.kv_pages.extend(req.request_id, req.input_len + 1)
         if trace is not None:
-            trace.end(span, clock())
+            graphed = self._replays(self.prefill_graph) > replays
+            bucket = (self.prefill_graph.bucket_for(req.input_len)
+                      if graphed else req.input_len)
+            trace.end(span, clock(),
+                      {"graphed": graphed, "bucket": bucket,
+                       "padded_tokens": bucket - req.input_len})
 
     def step(self, now: float) -> int:
         """One engine iteration: admit-from-queue → batched decode.
@@ -329,7 +353,7 @@ class InferenceEngine:
             decode_span = self._parent = trace.begin(
                 "engine.decode", TRACK, clock(), parent=step_span,
                 args={"lanes": len(active)})
-            replays = self._replays()
+            replays = self._replays(self.decode_graph)
             span = trace.begin("engine.tables", TRACK, clock(),
                                parent=decode_span)
         lanes = [self.lanes[i] for i in active]
@@ -383,7 +407,8 @@ class InferenceEngine:
             t = clock()
             trace.end(span, t)
             trace.end(decode_span, t,
-                      {"graphed": self._replays() > replays})
+                      {"graphed": self._replays(self.decode_graph)
+                       > replays})
             self._sample(t, len(active))
             trace.end(step_span, t)
         return produced

@@ -126,6 +126,9 @@ def test_request_spans_share_the_request_id(traced):
     for s in prefills:
         req = next(q for q in reqs if q.request_id == s.rid)
         assert s.args["prompt_tokens"] == req.input_len
+        # on the CPU every prompt prefills eagerly, at its own length
+        assert (s.args["graphed"], s.args["bucket"],
+                s.args["padded_tokens"]) == (False, req.input_len, 0)
         kids = [k for k in spans if k.parent == s.sid]
         assert [k.name for k in kids] == ["model.prefill",
                                           "engine.first_token"]
@@ -166,7 +169,8 @@ def test_counters_once_a_decode_step(traced):
     pool_bytes = (eng.kv_pages.total_pages * eng.kv_pages.page_tokens
                   * eng.kv_pages.bytes_per_token)
     for name in ("lanes_active", "queue_depth", "kv_used_bytes",
-                 "kv_reserved_bytes", "decode_graph_replays"):
+                 "kv_reserved_bytes", "decode_graph_replays",
+                 "prefill_graph_replays"):
         mine = [(t, v[name]) for n, t, v in samples if n == name]
         assert len(mine) == len(decodes), name
         assert [t for t, _ in mine] == pytest.approx(
@@ -174,8 +178,9 @@ def test_counters_once_a_decode_step(traced):
     # on the CPU every step decodes eagerly: no graph, no replay
     assert eng.decode_graph is None
     assert all(d.args["graphed"] is False for d in decodes)
-    assert {v["decode_graph_replays"] for n, _, v in samples
-            if n == "decode_graph_replays"} == {0}
+    assert eng.prefill_graph is None
+    for name in ("decode_graph_replays", "prefill_graph_replays"):
+        assert {v[name] for n, _, v in samples if n == name} == {0}
     lanes = [v["lanes_active"] for n, _, v in samples if n == "lanes_active"]
     assert lanes == [d.args["lanes"] for d in decodes]
     used = [v["kv_used_bytes"] for n, _, v in samples if n == "kv_used_bytes"]
