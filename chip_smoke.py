@@ -31,21 +31,21 @@ each reported on its own line:
    the 64-row tiles, a window that starts inside a key tile and a
    softcap; paged on the route ``route()`` names for each dtype (the
    ``group`` route for bf16 at G 4, the split route for float32 and for
-   float32 queries over bf16 pages), the split route forced in bf16 and
-   the serial baseline, over contexts on both sides of its 64-token
-   splits, empty to full, mixed, and with a whole split of -1 pages; the
-   split route at dh 16/32/64 (G 2/8/1); the group route at G 8, 10 and
+   float32 queries over bf16 pages) and the split route forced in bf16,
+   over contexts on both sides of its 64-token splits, empty to full,
+   mixed, and with a whole split of -1 pages; the split route at dh
+   16/32/64 (G 2/8/1); the group route at G 8, 10 and
    16 over dh 64, 128 and 256, and its partial form at G 8 and 10 over
    two ranks' blocks merged as the ranks merge them;
 4. ``control`` — the control tick on the card against the same tick on
    the CPU for a seeded 4096-row state;
 5. ``quantum`` — the batched admission path: the ``admit_quantum``
-   kernel's default route and the first port's serial kernel against
-   the plain version (decisions identical, not within a tolerance) on
-   four seeded quanta of 65,536 requests over 4,096 entitlements (one
-   that reaches every reason code, a pool that fills, falling weights
-   that hand the rounds over to the serial walk, a hot row), each with
-   its route, rounds, SM cycles by phase and both kernels' times; every
+   kernel's default route against the plain version (decisions
+   identical, not within a tolerance) on four seeded quanta of 65,536
+   requests over 4,096 entitlements (one that reaches every reason
+   code, a pool that fills, falling weights that hand the rounds over
+   to the serial walk, a hot row), each with its route, rounds, SM
+   cycles by phase and the kernel's time; every
    route on edge cases; both routes timed over quantum lengths; the
    batched tick of 8 pools x 100,000 rows on the card against the CPU;
    one 10,000-request ``Gateway.handle_quantum`` over 512 entitlements
@@ -185,13 +185,13 @@ each reported on its own line:
    256, G 10, window 2,048) against their plain versions, timed beside
    SDPA and the paged rows beside the split route forced.
 
-Then a ``timer`` line gives each kernel, the kernel it replaced and the
+Then a ``timer`` line gives each kernel, the route it replaced and the
 library call timed once more with the first port's serial timer (host
 time inside the window), one JSON line describes each kernel (launches
 on the serve path — and, for ``admit_quantum``, on the planner and
 shard phases, for the attention kernels on the ``train`` phase's (d)
 — error against the plain version, device times at
-the path's shapes of the kernel, the kernel it replaced, its plain
+the path's shapes of the kernel, the route it replaced, its plain
 version and the library call, and the card's bound for that work; one
 row per shape of the ``families`` phase; and the ``model_shard``
 phase's rows, with their launches on that phase's main paths), and the
@@ -561,7 +561,7 @@ def phase_analysis(torch, np, seed: int, card: str) -> dict:
           == decisions(replay(warm, 0.0)),
           "analysis: the warm quantum differs from Gateway.handle")
     nxt = ANALYSIS_ENTS
-    rows, predicted = [], {"rounds": 0, "walk": 0, "serial": 0}
+    rows, predicted = [], {"rounds": 0, "walk": 0}
     blocks0 = store.block_uploads
     with assert_no_rebuild(store) as start:
         for j, m in enumerate(ANALYSIS_SIZES):
@@ -637,7 +637,7 @@ def phase_kernels(torch, seed: int) -> dict:
         flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
         merge_partials, paged_attention, paged_attention_partial,
-        paged_attention_serial, reference_paged_attention)
+        reference_paged_attention)
     pa_mod = importlib.import_module(
         "repro_torch.kernels.paged_attention.paged_attention")
 
@@ -711,7 +711,7 @@ def phase_kernels(torch, seed: int) -> dict:
                                 ("float32", "bfloat16", None)):
         qd, kd = getattr(torch, q_dt), getattr(torch, kv_dt)
         want = kernel or pa_mod.route(qd, dh, H // Hkv)
-        errs, serial_errs = [], []
+        errs = []
         for i, ctxs in enumerate(ctx_sets):
             q, kp, vp, bt, cl = paged_inputs(torch, g, B, H, Hkv, dh, ctxs,
                                              kd, qd, T, mp)
@@ -722,24 +722,18 @@ def phase_kernels(torch, seed: int) -> dict:
             check(took == [want], f"paged q {q_dt} pages {kv_dt} "
                                   f"kernel={kernel}: routes {took}, want "
                                   f"{want}")
-            outs = [out]
-            if q_dt == kv_dt == "bfloat16" and kernel is None:
-                outs.append(paged_attention_serial(q, kp, vp, bt, cl))
             torch.cuda.synchronize()
             ref = reference_paged_attention(q, kp, vp, bt, cl)
             tol_dt = "bfloat16" if "bfloat16" in (q_dt, kv_dt) else q_dt
-            for out, sink in zip(outs, (errs, serial_errs)):
-                err, ok = max_err(torch, out, ref, tol_dt)
-                check(ok, f"paged q {q_dt} pages {kv_dt} ctx={ctxs}: max "
-                          f"|err| {err} beyond tolerance {TOL[tol_dt]}")
-                zero = [b for b, c in enumerate(ctxs) if c == 0]
-                check(not out[zero].float().abs().sum().item(),
-                      "paged: context 0 must give zeros")
-                sink.append(err)
-        if serial_errs:
+            err, ok = max_err(torch, out, ref, tol_dt)
+            check(ok, f"paged q {q_dt} pages {kv_dt} ctx={ctxs}: max "
+                      f"|err| {err} beyond tolerance {TOL[tol_dt]}")
+            zero = [b for b, c in enumerate(ctxs) if c == 0]
+            check(not out[zero].float().abs().sum().item(),
+                  "paged: context 0 must give zeros")
+            errs.append(err)
+        if q_dt == kv_dt == "bfloat16" and kernel is None:
             worst["paged_decode"] = max(errs)
-            lines.append(f"paged serial q {q_dt} / pages {kv_dt} max|err| "
-                         f"{max(serial_errs):.3g} ({len(serial_errs)} cases)")
         lines.append(f"paged {want} q {q_dt} / pages {kv_dt} max|err| "
                      f"{max(errs):.3g} ({len(errs)} cases)")
     # the group route at the groups and widths it was built for (G 8 at
@@ -1172,9 +1166,8 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
 
     aq_mod.reference_admit_scan = guarded
     try:
-        # 1. the kernel's routes and the first port's serial kernel
-        # against the plain version on four draws at the benchmark's
-        # size, then on the edge cases, then timed
+        # 1. the kernel's routes against the plain version on four draws
+        # at the benchmark's size, then on the edge cases, then timed
         n, m = 4096, 65536
         timer = Timer(torch)
         draws, first = [], None
@@ -1184,41 +1177,35 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
             how = aq_mod.route(m)
             out_k = admit_scan(*dev_args, **scal)
             stats = admit_scan.last_stats.tolist()
-            out_s = admit_scan(*dev_args, **scal, kernel="serial")
             torch.cuda.synchronize()
-            for name, out in ((how, out_k), ("serial", out_s)):
-                diff = same(out, out_p)
-                check(diff == 0, f"quantum: {label}: the {name} kernel and "
-                                 f"the plain version disagree on {diff} of "
-                                 f"{m} requests")
+            diff = same(out_k, out_p)
+            check(diff == 0, f"quantum: {label}: the {how} kernel and the "
+                             f"plain version disagree on {diff} of {m} "
+                             f"requests")
             codes = np.bincount(out_p[1].numpy(), minlength=5).tolist()
             if first is None:
                 check(all(codes), f"quantum: the draw missed a reason "
                                   f"code: {codes}")
                 first = (args, scal, dev_args, codes)
             k_ms = timer.ms(lambda: admit_scan(*dev_args, **scal))
-            s_ms = timer.ms(lambda: admit_scan(*dev_args, **scal,
-                                               kernel="serial"))
             draws.append({"draw": label, "route": how, "rounds": stats[0],
                           "fallback_at": stats[1], "ms": k_ms,
-                          "previous_ms": s_ms, "reasons": codes,
-                          "cycles": stats[2:]})
+                          "reasons": codes, "cycles": stats[2:]})
             print(f"quantum draw: {label}, N={n} M={m}, reasons 0-4 "
-                  f"{codes}: {how} and serial kernels identical to the "
-                  f"plain version (admit bits, reasons, priority bits); "
+                  f"{codes}: the {how} kernel identical to the plain "
+                  f"version (admit bits, reasons, priority bits); "
                   f"route {how}, rounds {stats[0]}, serial walk from "
                   f"{stats[1]}, SM cycles from the rounds kernel's start "
                   f"to the end of its grouping / its rounds {stats[2]} / "
                   f"{stats[3]}, of the walk kernel {stats[4]} (first "
                   f"launch); {k_ms:.5f} ms ({1e6 * k_ms / m:.2f} ns a "
-                  f"request), serial kernel {s_ms:.4f} ms "
-                  f"({1e6 * s_ms / m:.1f} ns a request); card {card}")
+                  f"request); card {card}")
         args, scal, dev_args, codes = first
         edges = []
         for label, e_args, e_scal in admit_edge_cases(np, torch, seed):
             e_p = plain(*e_args, **e_scal)
             e_dev = on("cuda", e_args)
-            for kernel in ("rounds", "walk", "serial"):
+            for kernel in ("rounds", "walk"):
                 e_k = admit_scan(*e_dev, **e_scal, kernel=kernel)
                 torch.cuda.synchronize()
                 d = same(e_k, e_p)
@@ -1226,7 +1213,7 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
                               f"kernel and the plain version disagree on "
                               f"{d} requests")
             edges.append(f"{label} {np.bincount(e_p[1].numpy(), minlength=5).tolist()}")
-        print("quantum edges: rounds, walk and serial kernels identical to "
+        print("quantum edges: rounds and walk kernels identical to "
               "the plain version (reasons 0-4): " + "; ".join(edges))
         kernel_ms = draws[0]["ms"]
         t = time.perf_counter()
@@ -1344,7 +1331,7 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
               f"{bad[:1]}")
         check(gw_launches == 4, f"quantum: {gw_launches} kernel launches for "
               "4 gateway quanta on the card")
-        check(gw_routes == {"rounds": 4, "walk": 0, "serial": 0},
+        check(gw_routes == {"rounds": 4, "walk": 0},
               f"quantum: the gateway's launches by route {gw_routes}")
         print(f"quantum gateway: handle_quantum of 10,000 requests over 512 "
               f"entitlements, responses identical on cuda and cpu; "
@@ -1383,9 +1370,9 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
                   "tick records or timeline)")
         check(launches > 0, "quantum: admit_quantum never launched on the "
                             "card's quantum-mode run")
-        check(route_counts["serial"] == 0 and launches == sum(
-            route_counts.values()), f"quantum: the experiments' launches "
-              f"by route {route_counts} (of {launches})")
+        check(launches == sum(route_counts.values()), f"quantum: the "
+              f"experiments' launches by route {route_counts} (of "
+              f"{launches})")
         check(not plain_on_cuda[0], f"quantum: the plain version was called "
               f"on CUDA tensors {plain_on_cuda[0]} times")
     finally:
@@ -1440,8 +1427,6 @@ def phase_quantum(torch, np, seed: int, card: str) -> dict:
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
         "library_ms": None,
-        "previous_ms": draws[0]["previous_ms"],
-        "previous": "serial kernel (admit_quantum_serial_launch)",
         "launches_by_route": route_counts,
         "draws": draws,
         "shape": f"N={n} rows, M={m} requests, first draw; plain version "
@@ -1563,9 +1548,9 @@ def phase_planner(torch, np, seed: int, card: str) -> dict:
 
     def read_counts(what: str) -> dict:
         routes = dict(admit_scan.route_launches)
-        check(routes["serial"] == 0 and admit_scan.launches == sum(
-            routes.values()), f"planner: {what}: admit_quantum launches by "
-              f"route {routes} (of {admit_scan.launches})")
+        check(admit_scan.launches == sum(routes.values()), f"planner: "
+              f"{what}: admit_quantum launches by route {routes} (of "
+              f"{admit_scan.launches})")
         return routes
 
     # 1. plan_fleet on the card against the CPU, then one
@@ -2121,7 +2106,7 @@ def phase_shard(torch, np, seed: int, card: str) -> dict:
 
     check(same_words(np, flat, plain), "shard: the flat admit_quantum kernel differs "
           "from its plain version on the sharded quantum's draw")
-    launches = {"rounds": 0, "walk": 0, "serial": 0}
+    launches = {"rounds": 0, "walk": 0}
     rows_out = []
     for size in admit_sizes:
         for r, res in enumerate(runs[size]):
@@ -2142,7 +2127,7 @@ def phase_shard(torch, np, seed: int, card: str) -> dict:
           f"admit bits, reasons {reasons} ({admitted} admitted) and "
           f"priorities of shard_admit_quantum identical to the flat "
           f"kernel's and the plain version's at 1, 2 and 4 ranks; each "
-          f"rank's replay one launch of the rounds route, none serial, no "
+          f"rank's replay one launch of the rounds route, no "
           f"plain call on CUDA tensors; rank 0's ms (median of 5, host "
           f"clock): " + ", ".join(rows_out) + f"; flat kernel "
           f"{np.median(flat_ms):.3f} ms; launches {launches}; card {card}")
@@ -2725,16 +2710,14 @@ def family_kernel_checks(torch, seed: int) -> dict:
     (gemma2-9b) and with a window at G 10 (recurrentgemma-2b), and flash
     without the causal mask (whisper-small's encoder, and its
     cross-attention with Sq 1 and 64 over 1,500 keys), each against its
-    plain version at ``TOL_FAMILIES``; the serial baseline at the
-    widths and groups without a window.  Each windowed case also runs
+    plain version at ``TOL_FAMILIES``.  Each windowed case also runs
     the kernel with its window 64 tokens (one chunk) too long and too
     short, and each non-causal case runs it causal: that wrong output
     must fail the same check.  Returns the max error per case."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
-        paged_attention, paged_attention_serial, paged_decode_attention,
-        reference_paged_attention)
+        paged_attention, paged_decode_attention, reference_paged_attention)
     pa_mod = importlib.import_module(
         "repro_torch.kernels.paged_attention.paged_attention")
     g = torch.Generator(device="cuda").manual_seed(seed + 11)
@@ -2758,7 +2741,7 @@ def family_kernel_checks(torch, seed: int) -> dict:
             wrong.append(ratio)
 
     for label, H, Hkv, dh, window, cap, batches in FAMILY_PAGED_CASES:
-        worst = worst_serial = worst_split = 0.0
+        worst = worst_split = 0.0
         want = pa_mod.route(torch.bfloat16, dh, H // Hkv)
         for ctxs in batches:
             q, kp, vp, bt, cl = paged_inputs(torch, g, 8, H, Hkv, dh, ctxs,
@@ -2788,12 +2771,7 @@ def family_kernel_checks(torch, seed: int) -> dict:
                 torch.cuda.synchronize()
                 worst_split = max(worst_split, hold(
                     out, ref, f"split {label} ctx={ctxs}"))
-            if window is None:
-                out = paged_attention_serial(q, kp, vp, bt, cl, softcap=cap)
-                torch.cuda.synchronize()
-                worst_serial = max(worst_serial, hold(
-                    out, ref, f"serial {label} ctx={ctxs}"))
-            else:
+            if window is not None:
                 off_by_a_chunk(lambda w: paged_decode_attention(
                     q, kp, vp, bt, cl, softcap=cap, window=w), ref, window,
                     f"paged {label} ctx={ctxs}")
@@ -2801,8 +2779,6 @@ def family_kernel_checks(torch, seed: int) -> dict:
         lines.append(f"paged {label} (dh {dh}, G {H // Hkv}, window "
                      f"{window}, softcap {cap}) {want} max|err| {worst:.3g}"
                      + (f", split {worst_split:.3g}" if want == "group"
-                        else "")
-                     + (f", serial {worst_serial:.3g}" if window is None
                         else ""))
     # the f32 and f32-over-bf16 entries at dh 256 with a window (the
     # small-model check runs f32 at dh 16)
@@ -5445,17 +5421,17 @@ def phase_model_shard(torch, np, seed: int, card: str) -> tuple:
 
 # -- kernel report ----------------------------------------------------------------
 def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
-    """Times of each kernel, of the kernel it replaced (``previous_ms``),
-    of its plain version and of the library's attention at the serve
-    path's shapes, beside the card's bound; then each kernel, its
-    predecessor and the library call once more with the serial timer of
-    the first port, on a line of their own."""
+    """Times of each kernel, of the route it replaced (flash's scalar
+    route as ``previous_ms``, paged's split route as ``split_ms``), of
+    its plain version and of the library's attention at the serve path's
+    shapes, beside the card's bound; then each kernel, that route and
+    the library call once more with the serial timer of the first port,
+    on a line of their own."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, reference_attention)
     from repro_torch.kernels.paged_attention import (
-        paged_attention, paged_attention_serial, paged_decode_attention,
-        reference_paged_attention)
+        paged_attention, paged_decode_attention, reference_paged_attention)
 
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
@@ -5522,7 +5498,6 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
     qs = qd[:, :, None, :]
     calls["paged_decode"] = {
         "kernel": lambda: paged_decode_attention(qd, kp, vp, bt, cl),
-        "previous": lambda: paged_attention_serial(qd, kp, vp, bt, cl),
         "split": lambda: paged_attention(qd, kp, vp, bt, cl, kernel="split"),
         "library": lambda: F.scaled_dot_product_attention(
             qs, dk, dv, attn_mask=mask, enable_gqa=True)}
@@ -5540,8 +5515,6 @@ def kernel_report(torch, seed: int, served: dict, errs: dict) -> list:
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
         "library_ms": timer.ms(calls["paged_decode"]["library"]),
-        "previous_ms": timer.ms(calls["paged_decode"]["previous"]),
-        "previous": "serial kernel (paged_decode_serial_bf16)",
         "split_ms": timer.ms(calls["paged_decode"]["split"]),
         "shape": f"B={B} H={H} H_kv={Hkv} dh={dh} T={T} max_pages={mp} "
                  f"ctx={ctx} bf16, {which} route (split_ms: the split "

@@ -1132,3 +1132,12 @@ class Gateway:
 
     def on_failure(self, request_id: str, now: float) -> None:
         self.manager.on_evict(request_id, now)
+
+    def kv_reserved_bytes(self) -> float:
+        """The KV bytes the pools charged at admission for the requests
+        they hold: each pool's ``kv_in_use`` over its live rows."""
+        total = 0.0
+        for pool in self.manager.pools.values():
+            store = pool.store
+            total += float(store.col["kv_in_use"][store.live_slots()].sum())
+        return total

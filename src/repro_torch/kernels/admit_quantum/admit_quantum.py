@@ -12,8 +12,7 @@ the requests by row and walks every row's chain in parallel with the
 pool state frozen, committing the prefix that saw the true state, round
 after round (:func:`reference_admit_rounds` is its CPU mirror, for the
 tests); ``walk`` is one warp's serial walk, for short quanta and for the
-tail that the rounds hand over.  ``kernel="serial"`` launches the first
-port's one-thread walk, kept as the timing baseline on no path.
+tail that the rounds hand over.
 
 :func:`admit_scan` dispatches on the device of its inputs: CPU tensors
 take :func:`reference_admit_scan`, CUDA tensors launch the kernel or
@@ -58,8 +57,6 @@ MIN_COMMIT = 512
 WALK_BELOW = 256
 _ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3
              + [ctypes.c_float] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_SERIAL_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3
-                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 _ROWS = (("class_code", torch.int32), ("bound", torch.bool),
          ("baseline_kv", torch.float32), ("baseline_conc", torch.float32),
          ("weights", torch.float32), ("bucket_level", torch.float32),
@@ -288,9 +285,8 @@ def admit_scan(class_code, bound, baseline_kv, baseline_conc, weights,
                req_kv, req_live, *, pool_in_flight: int, pool_resident,
                pool_conc_cap, running_min, slack_factor, kernel=None):
     """(admitted, reason, weights of the requests) for one quantum; see
-    the module docstring.  ``kernel`` forces a route on the card:
-    ``"rounds"``, ``"walk"`` or ``"serial"`` (the first port's kernel,
-    on no path); by default :func:`route` picks it."""
+    the module docstring.  ``kernel`` forces a route on the card,
+    ``"rounds"`` or ``"walk"``; by default :func:`route` picks it."""
     args = (class_code, bound, baseline_kv, baseline_conc, weights,
             bucket_level, in_flight, kv_in_use, req_ent, req_tokens, req_kv,
             req_live)
@@ -319,28 +315,15 @@ def admit_scan(class_code, bound, baseline_kv, baseline_conc, weights,
             float(np.float32(pool_conc_cap)), float(np.float32(running_min)),
             float(np.float32(slack_factor)))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if how == "serial":
-        in_smem = build.function("admit_quantum",
-                                 "admit_quantum_state_in_smem",
-                                 [ctypes.c_int])(n)
-        scratch = torch.empty(0 if in_smem else 2 * n, dtype=torch.float32,
-                              device=dev)
-        fn = build.function("admit_quantum", "admit_quantum_serial_launch",
-                            _SERIAL_ARGTYPES)
-        err = fn(*ptrs, scratch.data_ptr(), n, m, *pool, stream)
-    else:
-        nbytes = build.function("admit_quantum",
-                                "admit_quantum_scratch_bytes",
-                                [ctypes.c_int, ctypes.c_int],
-                                restype=ctypes.c_longlong)(n, m)
-        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-        stats = torch.empty(5, dtype=torch.int32, device=dev)
-        fn = build.function("admit_quantum", "admit_quantum_launch",
-                            _ARGTYPES)
-        err = fn(*ptrs, scratch.data_ptr(), stats.data_ptr(), n, m, *pool,
-                 0 if how == "rounds" else 1, MAX_ROUNDS, MIN_COMMIT,
-                 stream)
-        admit_scan.last_stats = stats
+    nbytes = build.function("admit_quantum", "admit_quantum_scratch_bytes",
+                            [ctypes.c_int, ctypes.c_int],
+                            restype=ctypes.c_longlong)(n, m)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    stats = torch.empty(5, dtype=torch.int32, device=dev)
+    fn = build.function("admit_quantum", "admit_quantum_launch", _ARGTYPES)
+    err = fn(*ptrs, scratch.data_ptr(), stats.data_ptr(), n, m, *pool,
+             0 if how == "rounds" else 1, MAX_ROUNDS, MIN_COMMIT, stream)
+    admit_scan.last_stats = stats
     build.check(err, "admit_quantum")
     admit_scan.launches += 1
     admit_scan.route_launches[how] += 1
@@ -349,7 +332,7 @@ def admit_scan(class_code, bound, baseline_kv, baseline_conc, weights,
 
 #: kernel launches in total and by route
 admit_scan.launches = 0
-admit_scan.route_launches = {"rounds": 0, "walk": 0, "serial": 0}
+admit_scan.route_launches = {"rounds": 0, "walk": 0}
 #: int32 [5] on the card, written by the last rounds or walk launch: the
 #: rounds it ran, the request its serial walk started at (-1: none), and
 #: SM clock cycles from the kernel's start to the end of the grouping, of

@@ -12,8 +12,8 @@
 // at N = 4,096 rows and M = 65,536 requests, under a microsecond at
 // 3.35 TB/s) and not arithmetic (a few dozen operations a request), but
 // the dependent chain.  Read as M dependent steps it is 65,536 steps long
-// (the serial kernel below, kept as the baseline, walks it with one
-// thread at ~170 cycles a step).  It is much shorter than that: the state
+// (the first port's serial kernel walked it with one thread at ~170
+// cycles a step).  It is much shorter than that: the state
 // a request reads is its row's bucket and KV, which only its own row's
 // requests change, and two pool scalars that move one way each —
 //   * the admitted count only grows, so "contended" (f32(count) > cap;
@@ -85,7 +85,7 @@
 // round at the draw) and the walk ~110 cycles (~56 ns) a request, so a
 // round pays only when it commits a few hundred requests or more; 32
 // rounds of at least 512 bound the rounds at ~1 ms before the walk takes
-// over, which keeps the worst case under the serial kernel's ~5.4 ms; and
+// over, which keeps the worst case under that serial kernel's ~5.4 ms; and
 // the walk beats the rounds' fixed cost below ~250 requests (0.0085 ms
 // against 0.0204 at 32 requests, 0.0248 against 0.0219 at 256).
 //
@@ -853,142 +853,6 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(RT, 1)
   cl.sync();        // no CTA leaves while another may read its shared memory
 }
 
-// -- the serial kernel of the first port, kept as the baseline ----------
-// One CTA of 256 threads: all threads stage a chunk of 1,024 requests'
-// row-static inputs in shared memory, then thread 0 walks the chunk in
-// arrival order with bucket and KV in shared memory (~170 cycles a step
-// on the H100: each step's staged loads wait on the previous step's
-// stores to the same shared array).  On no path; timed as previous_ms.
-namespace serial {
-
-constexpr int THREADS = 256;
-constexpr int CHUNK = 1024;
-// staged bytes per request: row, tokens, kv, weight, chi, flags
-constexpr int STAGE_BYTES = 4 * 5 + 1;
-
-struct Stage {
-  int* e;
-  float* tok;
-  float* kvn;
-  float* w;
-  float* chi;
-  uint8_t* flags;
-};
-
-__device__ __forceinline__ Stage stage_at(unsigned char* base) {
-  Stage s;
-  s.e = reinterpret_cast<int*>(base);
-  s.tok = reinterpret_cast<float*>(base + 4 * CHUNK);
-  s.kvn = reinterpret_cast<float*>(base + 8 * CHUNK);
-  s.w = reinterpret_cast<float*>(base + 12 * CHUNK);
-  s.chi = reinterpret_cast<float*>(base + 16 * CHUNK);
-  s.flags = base + 20 * CHUNK;
-  return s;
-}
-
-__global__ void __launch_bounds__(THREADS, 1) admit_quantum_serial_kernel(
-    const int* __restrict__ class_code, const uint8_t* __restrict__ bound,
-    const float* __restrict__ baseline_kv,
-    const float* __restrict__ baseline_conc,
-    const float* __restrict__ weights, const float* __restrict__ bucket_in,
-    const int* __restrict__ in_flight, const float* __restrict__ kv_in,
-    const int* __restrict__ req_ent, const float* __restrict__ req_tokens,
-    const float* __restrict__ req_kv, const uint8_t* __restrict__ req_live,
-    uint8_t* __restrict__ admitted, int* __restrict__ reason,
-    float* __restrict__ prio, float* scratch, int n_rows, int m,
-    int pool_in_flight, float pool_resident, float pool_conc_cap,
-    float running_min, float slack_factor, int state_in_smem) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  Stage st = stage_at(smem);
-  float* bucket;
-  float* kv;
-  if (state_in_smem) {
-    // past the stage, 16-byte aligned (STAGE_BYTES · CHUNK is a multiple
-    // of 16)
-    bucket = reinterpret_cast<float*>(smem + STAGE_BYTES * CHUNK);
-  } else {
-    bucket = scratch;
-  }
-  kv = bucket + n_rows;
-  for (int r = tid; r < n_rows; r += THREADS) {
-    bucket[r] = bucket_in[r];
-    kv[r] = kv_in[r];
-  }
-
-  // walker registers (thread 0 only)
-  int pool_infl = pool_in_flight;
-  float run_min = running_min;
-  const bool free_slots = pool_resident < pool_conc_cap;
-
-  for (int base = 0; base < m; base += CHUNK) {
-    const int n = min(CHUNK, m - base);
-    __syncthreads();  // the walk of the previous chunk is done
-    for (int j = tid; j < n; j += THREADS) {
-      const int g = base + j;
-      int e = req_ent[g];
-      e = e < 0 ? 0 : (e >= n_rows ? n_rows - 1 : e);
-      const int cc = class_code[e];
-      const float r_lim = baseline_conc[e];
-      const float r_eff = (r_lim <= 0.0f && cc == SPOT) ? pool_conc_cap
-                                                         : r_lim;
-      const bool conc = (r_eff <= 0.0f) ||
-                        (__int2float_rn(in_flight[e]) < r_eff);
-      const unsigned bit = (cc >= 0 && cc < 32) ? (1u << cc) : 0u;
-      uint8_t f = 0;
-      f |= bound[e] ? F_BOUND : 0;
-      f |= req_live[g] ? F_LIVE : 0;
-      f |= (BURSTOK_CODES & bit) ? F_BURSTOK : 0;
-      f |= (PROTECTED_CODES & bit) ? F_PROT : 0;
-      f |= conc ? F_CONC : 0;
-      const float w = weights[e];
-      st.e[j] = e;
-      st.tok[j] = req_tokens[g];
-      st.kvn[j] = req_kv[g];
-      st.w[j] = w;
-      st.chi[j] = baseline_kv[e];
-      st.flags[j] = f;
-      prio[g] = w;
-    }
-    __syncthreads();
-    if (tid != 0) continue;
-    for (int j = 0; j < n; ++j) {
-      const int e = st.e[j];
-      const uint8_t f = st.flags[j];
-      const float tok = st.tok[j];
-      const float kvn = st.kvn[j];
-      const float w = st.w[j];
-      const float chi = st.chi[j];
-      const float b = bucket[e];
-      const float kv_new = __fadd_rn(kv[e], kvn);
-      const bool contended = __int2float_rn(pool_infl) > pool_conc_cap;
-      const bool ok_bound = f & F_BOUND;
-      const bool ok_conc =
-          (f & F_CONC) || ((f & F_BURSTOK) && free_slots && !contended);
-      const bool ok_budget = b >= tok;
-      const bool ok_kv = (chi <= 0.0f) || (kv_new <= chi);
-      const bool ok_prio = (f & F_PROT) || !contended ||
-                           (w > __fmul_rn(run_min, slack_factor));
-      const bool admit = (f & F_LIVE) && ok_bound && ok_conc && ok_budget &&
-                         ok_kv && ok_prio;
-      const int why = !ok_bound ? 1
-                      : !ok_conc ? 2
-                      : !(ok_budget && ok_kv) ? 3
-                      : !ok_prio ? 4 : 0;
-      if (admit) {
-        bucket[e] = __fadd_rn(b, -tok);
-        kv[e] = kv_new;
-        pool_infl += 1;
-        run_min = w < run_min ? w : run_min;
-      }
-      admitted[base + j] = admit ? 1 : 0;
-      reason[base + j] = why;
-    }
-  }
-}
-
-}  // namespace serial
-
 }  // namespace
 
 extern "C" {
@@ -1065,43 +929,6 @@ int admit_quantum_launch(
   }
   admit_walk_kernel<<<1, 32, state, st>>>(a, sc, stt, in_smem,
                                           route == 0 ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The serial kernel of the first port (same arguments as before; scratch
-// holds 2·n_rows floats when the state does not fit in shared memory).
-int admit_quantum_serial_launch(
-    const void* class_code, const void* bound, const void* baseline_kv,
-    const void* baseline_conc, const void* weights, const void* bucket,
-    const void* in_flight, const void* kv_in_use, const void* req_ent,
-    const void* req_tokens, const void* req_kv, const void* req_live,
-    void* admitted, void* reason, void* prio, void* scratch, int n_rows,
-    int m, int pool_in_flight, float pool_resident, float pool_conc_cap,
-    float running_min, float slack_factor, void* stream) {
-  using namespace serial;
-  const int in_smem = admit_quantum_state_in_smem(n_rows);
-  const int bytes = STAGE_BYTES * CHUNK + (in_smem ? 8 * n_rows : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      admit_quantum_serial_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  admit_quantum_serial_kernel<<<1, THREADS, bytes,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(class_code),
-      static_cast<const uint8_t*>(bound),
-      static_cast<const float*>(baseline_kv),
-      static_cast<const float*>(baseline_conc),
-      static_cast<const float*>(weights), static_cast<const float*>(bucket),
-      static_cast<const int*>(in_flight),
-      static_cast<const float*>(kv_in_use),
-      static_cast<const int*>(req_ent),
-      static_cast<const float*>(req_tokens),
-      static_cast<const float*>(req_kv),
-      static_cast<const uint8_t*>(req_live),
-      static_cast<uint8_t*>(admitted), static_cast<int*>(reason),
-      static_cast<float*>(prio), static_cast<float*>(scratch), n_rows, m,
-      pool_in_flight, pool_resident, pool_conc_cap, running_min,
-      slack_factor, in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

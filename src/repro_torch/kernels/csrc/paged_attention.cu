@@ -95,12 +95,6 @@
 // p·v / Σ p and lse = ln Σ e^s over its live tokens (o = 0, lse = −inf
 // where it has none) — for the ranks' partials to be merged
 // (flash-decoding across ranks).
-//
-// paged_decode_serial_bf16 keeps the first kernel of this port — one CTA
-// per (sequence, kv head) walking its pages in series — as the baseline
-// that the split kernel's time is compared with.  It is on no path.  It
-// takes dh and G at run time (any width and group that fit its shared
-// memory) and has no window.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,7 +104,6 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr float NEG_INF = -2.38e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -879,139 +872,6 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
 
 }  // namespace group
 
-// ---------------------------------------------------------------------------
-// Serial baseline: one CTA per (sequence, kv head), pages in series
-// ---------------------------------------------------------------------------
-namespace serial {
-
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
-                    const TKV* __restrict__ vp,
-                    const int* __restrict__ block_tables,
-                    const int* __restrict__ context_lens,
-                    TQ* __restrict__ o, int H, int Hkv, int T_, int dh,
-                    int max_pages, float softcap, float scale) {
-  extern __shared__ float smem[];
-  const int G = H / Hkv;
-  float* Qs = smem;                 // G x dh
-  float* Ss = Qs + G * dh;          // G x T   scores, then probabilities
-  float* acc = Ss + G * T_;         // G x dh
-  float* ml = acc + G * dh;         // G x 3   (m, l, alpha)
-
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int nwarps = THREADS / 32;
-
-  const TQ* qb = q + ((long long)b * H + (long long)hk * G) * dh;
-  for (int i = tid; i < G * dh; i += THREADS) {
-    Qs[i] = to_f32(qb[i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += THREADS) {
-    ml[g * 3 + 0] = NEG_INF;
-    ml[g * 3 + 1] = 0.f;
-  }
-
-  const int ctx = context_lens[b];
-  const int n_pages = min(max_pages, (ctx + T_ - 1) / T_);
-  const long long tok_stride = (long long)Hkv * dh;      // one token row
-  const long long page_stride = (long long)T_ * tok_stride;
-
-  for (int ip = 0; ip < n_pages; ++ip) {
-    const int page = block_tables[(long long)b * max_pages + ip];
-    if (page < 0) continue;                             // uniform per CTA
-    const TKV* kpage = kp + page * page_stride + (long long)hk * dh;
-    const TKV* vpage = vp + page * page_stride + (long long)hk * dh;
-    __syncthreads();                  // Qs / ml ready; last page consumed
-
-    // scores: warp w takes tokens w, w + nwarps, ...; lanes split dh
-    for (int t = warp; t < T_; t += nwarps) {
-      const TKV* krow = kpage + t * tok_stride;
-      for (int g = 0; g < G; ++g) {
-        float part = 0.f;
-        for (int d = lane; d < dh; d += 32)
-          part = fmaf(Qs[g * dh + d], to_f32(krow[d]), part);
-        part = warp_sum(part);
-        if (lane == 0) Ss[g * T_ + t] = part;
-      }
-    }
-    __syncthreads();
-
-    // online-softmax update: warp w takes heads w, w + nwarps, ...
-    for (int g = warp; g < G; g += nwarps) {
-      const float m_prev = ml[g * 3 + 0];
-      float mx = NEG_INF;
-      for (int t = lane; t < T_; t += 32) {
-        float x = Ss[g * T_ + t] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        const bool ok = ip * T_ + t < ctx;
-        x = ok ? x : NEG_INF;
-        Ss[g * T_ + t] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float sum = 0.f;
-      for (int t = lane; t < T_; t += 32) {
-        const bool ok = ip * T_ + t < ctx;
-        const float p = ok ? expf(Ss[g * T_ + t] - m_new) : 0.f;
-        Ss[g * T_ + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      const float alpha = m_prev > NEG_INF / 2 ? expf(m_prev - m_new) : 0.f;
-      if (lane == 0) {
-        ml[g * 3 + 0] = m_new;
-        ml[g * 3 + 1] = alpha * ml[g * 3 + 1] + sum;
-        ml[g * 3 + 2] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc[g, d] = alpha_g * acc[g, d] + sum_t p[g, t] * v[t, d]
-    for (int i = tid; i < G * dh; i += THREADS) {
-      const int g = i / dh, d = i % dh;
-      float a = acc[i] * ml[g * 3 + 2];
-      for (int t = 0; t < T_; ++t)
-        a = fmaf(Ss[g * T_ + t], to_f32(vpage[t * tok_stride + d]), a);
-      acc[i] = a;
-    }
-  }
-  __syncthreads();
-
-  TQ* ob = o + ((long long)b * H + (long long)hk * G) * dh;
-  for (int i = tid; i < G * dh; i += THREADS) {
-    const int g = i / dh;
-    ob[i] = from_f32<TQ>(acc[i] / fmaxf(ml[g * 3 + 1], 1e-30f));
-  }
-}
-
-int launch(const void* q, const void* kp, const void* vp,
-           const void* block_tables, const void* context_lens, void* o,
-           int B, int H, int Hkv, int T_, int dh, int max_pages,
-           float softcap, float scale, void* stream) {
-  if (B == 0) return cudaSuccess;
-  const int G = H / Hkv;
-  const size_t smem = sizeof(float) * (2 * G * dh + G * T_ + 3 * G);
-  auto kern = paged_decode_kernel<__nv_bfloat16, __nv_bfloat16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(Hkv, B);
-  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp),
-      static_cast<const int*>(block_tables),
-      static_cast<const int*>(context_lens), static_cast<__nv_bfloat16*>(o),
-      H, Hkv, T_, dh, max_pages, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace serial
-
 }  // namespace
 
 // The split-K entries.  `part` is f32 scratch of
@@ -1093,16 +953,4 @@ extern "C" int paged_group_bf16(const void* q, const void* kp,
   return group::launch(q, kp, vp, block_tables, context_lens, key_offset, o,
                        key_offset ? lse : nullptr, part, B, H, Hkv, T, dh,
                        max_pages, window, softcap, scale, stream);
-}
-
-// The serial baseline, bf16 only (the serve path's types).
-extern "C" int paged_decode_serial_bf16(const void* q, const void* kp,
-                                        const void* vp,
-                                        const void* block_tables,
-                                        const void* context_lens, void* o,
-                                        int B, int H, int Hkv, int T, int dh,
-                                        int max_pages, float softcap,
-                                        float scale, void* stream) {
-  return serial::launch(q, kp, vp, block_tables, context_lens, o, B, H,
-                        Hkv, T, dh, max_pages, softcap, scale, stream);
 }

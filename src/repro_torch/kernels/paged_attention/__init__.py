@@ -3,7 +3,6 @@ from repro_torch.kernels.paged_attention.paged_attention import (
     merge_partials,
     paged_attention,
     paged_attention_partial,
-    paged_attention_serial,
     reference_paged_attention,
     reference_paged_attention_partial,
     reference_paged_attention_group,
@@ -12,7 +11,6 @@ from repro_torch.kernels.paged_attention.paged_attention import (
 )
 
 __all__ = ["merge_partials", "paged_attention", "paged_attention_partial",
-           "paged_attention_serial",
            "paged_decode_attention", "reference_paged_attention",
            "reference_paged_attention_group",
            "reference_paged_attention_partial",

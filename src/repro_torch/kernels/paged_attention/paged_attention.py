@@ -30,9 +30,7 @@ kernel or raise; ``kernel="split"`` or ``"group"`` forces a route (to
 time one beside the other).  ``paged_attention.launches`` counts kernel
 launches (one per call, both passes), ``paged_attention.route_launches``
 those of each route (``"split"``, ``"group"``, and their partial forms
-``"partial"`` and ``"group_partial"``) and of
-:func:`paged_attention_serial`, the first, serial kernel kept as the
-split kernel's timing baseline (any dh and G, no window), and
+``"partial"`` and ``"group_partial"``), and
 ``paged_attention.windowed_launches`` the launches that had a window.
 :func:`reference_paged_attention_split` and
 :func:`reference_paged_attention_group` are plain mirrors of the two
@@ -102,8 +100,6 @@ _PARTIAL_ENTRY = {(torch.float32, torch.float32): "paged_partial_f32",
                   (torch.float32, torch.bfloat16): "paged_partial_f32_bf16"}
 _PARTIAL_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                      + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-_SERIAL_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 #: head widths of the group route (bfloat16 on the tensor cores)
 GROUP_HEAD_DIMS = (64, 128, 256)
 #: the smallest group G that takes the group route: timed beside the
@@ -454,33 +450,8 @@ def paged_attention_partial(q: torch.Tensor, k_pages: torch.Tensor,
     return out, lse
 
 
-def paged_attention_serial(q, k_pages, v_pages, block_tables, context_lens,
-                           *, softcap=None) -> torch.Tensor:
-    """The first kernel of the port (one CTA per (sequence, kv head),
-    pages in series), bfloat16 on CUDA only: the baseline that
-    ``chip_smoke.py`` times beside the split kernel.  It takes dh and G
-    at run time and has no window.  No path calls it."""
-    out = torch.empty_like(q)
-    _check(q, k_pages, v_pages, block_tables, context_lens, out)
-    if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16:
-        raise ValueError("paged_attention_serial: bfloat16 only")
-    B, H, dh = q.shape
-    P, T, H_kv, _ = k_pages.shape
-    fn = build.function("paged_attention", "paged_decode_serial_bf16",
-                        _SERIAL_ARGTYPES)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             block_tables.data_ptr(), context_lens.data_ptr(),
-             out.data_ptr(), B, H, H_kv, T, dh, block_tables.shape[1],
-             float(softcap or 0.0), 1.0 / math.sqrt(dh),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_attention_serial")
-    paged_attention.launches += 1
-    paged_attention.route_launches["serial"] += 1
-    return out
-
-
 paged_attention.launches = 0
 paged_attention.route_launches = {"split": 0, "group": 0, "partial": 0,
-                                  "group_partial": 0, "serial": 0}
+                                  "group_partial": 0}
 #: split and group launches with a window (local layers)
 paged_attention.windowed_launches = 0

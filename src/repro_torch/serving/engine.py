@@ -64,7 +64,10 @@ reference engine calls prefill without the encoder's frames, so its
 encoder gets none; whisper runs through the model's entry points.
 
 Spans (``telemetry=``, a ``repro_torch.telemetry.Telemetry``; off by
-default, and then nothing is recorded).  On the host clock
+default, and then nothing is recorded).  The engine records through
+one recorder (``_Spans``; without telemetry the inert ``_NoSpans``,
+which reads no clock and evaluates no counter), and a span's parent is
+the span open around it in the code.  On the host clock
 (``Telemetry.clock``), on the ``engine`` track::
 
     engine.step                 queue_depth, lanes_active
@@ -84,12 +87,15 @@ default, and then nothing is recorded).  On the host clock
 
 ``engine.admit`` (rid, the verdict) wraps the gateway call of
 ``submit``, and ``request.queued`` (rid, on the ``queue`` track) runs
-from its end to the start of the request's ``engine.prefill``.  Each
+from its end to the start of the request's ``engine.prefill``.
+``engine.bookkeeping`` starts where ``engine.sample`` ends, and
+``engine.decode`` and ``engine.step`` end with it.  At that end each
 decode step samples the counters ``lanes_active``, ``queue_depth``,
 ``kv_used_bytes`` (the pages held), ``kv_reserved_bytes`` (the KV the
-gateway's pools charged at admission, summed over their live rows),
-``decode_graph_replays`` and ``prefill_graph_replays`` (the decode and
-prefill graphs' replays so far; 0 on the eager path).
+gateway's pools charged at admission for live requests,
+``Gateway.kv_reserved_bytes``), ``decode_graph_replays`` and
+``prefill_graph_replays`` (the decode and prefill graphs' replays so
+far; 0 on the eager path).
 The ``model.*`` spans are taken in a copy of the ``Model`` whose
 ``prefill`` and ``decode_step`` record them, swapped in when the
 telemetry is set: they bracket only the call into the model, and sit
@@ -103,6 +109,7 @@ prefill.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Optional
 
 import numpy as np
@@ -117,6 +124,128 @@ from repro_torch.serving.request import Request, RequestState
 
 #: the tracks of the engine's spans
 TRACK, QUEUE_TRACK = "engine", "queue"
+
+
+def _replays(graph) -> int:
+    return 0 if graph is None else graph.replays
+
+
+class _Span:
+    """An open span of :class:`_Spans`, closed when its ``with`` block
+    is left, or before by :meth:`close`; ``end`` is its end time once
+    closed."""
+    __slots__ = ("spans", "sid", "end")
+
+    def __init__(self, spans: "_Spans", sid: int) -> None:
+        self.spans, self.sid, self.end = spans, sid, None
+
+    def close(self, end: Optional[float] = None, **args) -> None:
+        """End the span now, or at ``end``, adding ``args`` to its own."""
+        if self.end is None:
+            self.end = self.spans.clock() if end is None else end
+            self.spans.trace.end(self.sid, self.end, args)
+
+    def __enter__(self) -> "_Span":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+        self.spans.open.pop()
+
+
+class _Spans:
+    """The engine's spans and counters, on a ``Telemetry``'s trace and
+    clock (the module docstring draws the tree)."""
+
+    def __init__(self, telemetry, engine: "InferenceEngine") -> None:
+        self.trace, self.clock = telemetry.trace, telemetry.clock
+        self.engine = engine
+        #: the spans open, innermost last
+        self.open: list[_Span] = []
+        #: the open ``request.queued`` span of each queued request
+        self.queued: dict[str, int] = {}
+
+    def span(self, name: str, rid: Optional[str] = None,
+             start: Optional[float] = None, device: bool = False,
+             **args) -> _Span:
+        """Open ``name`` inside the innermost open span, now or at
+        ``start``; with ``device`` it carries its device interval."""
+        parent = self.open[-1].sid if self.open else None
+        sid = self.trace.begin(
+            name, TRACK, self.clock() if start is None else start,
+            parent=parent, rid=rid, args=args or None, device=device)
+        self.open.append(_Span(self, sid))
+        return self.open[-1]
+
+    def instant(self, name: str, rid: str,
+                at: Optional[float] = None) -> None:
+        self.trace.instant(name, TRACK, self.clock() if at is None else at,
+                           {"rid": rid})
+
+    def queue(self, rid: str, start: Optional[float] = None) -> None:
+        """Open ``rid``'s ``request.queued`` span, now or at ``start``."""
+        self.queued[rid] = self.trace.begin(
+            "request.queued", QUEUE_TRACK,
+            self.clock() if start is None else start, rid=rid)
+
+    def dequeue(self, rid: str, **args) -> float:
+        """Close ``rid``'s ``request.queued`` span now; returns when."""
+        t = self.clock()
+        self.trace.end(self.queued.pop(rid, -1), t, args)
+        return t
+
+    def sample(self, active: int, at: float) -> None:
+        """The decode step's counters, at ``at``."""
+        eng = self.engine
+        gw = eng.gateway
+        for name, value in (
+                ("lanes_active", active), ("queue_depth", len(eng.queue)),
+                ("kv_used_bytes", eng.kv_pages.kv_bytes_in_use()),
+                ("kv_reserved_bytes",
+                 0.0 if gw is None else gw.kv_reserved_bytes()),
+                ("decode_graph_replays", _replays(eng.decode_graph)),
+                ("prefill_graph_replays", _replays(eng.prefill_graph))):
+            self.trace.counter(name, TRACK, at, {name: value})
+
+    def traced(self, model: Model) -> Model:
+        """A copy of ``model`` whose ``prefill`` and ``decode_step``
+        each record a ``model.*`` span with its device interval."""
+        def wrap(name, fn):
+            def call(*args, **kwargs):
+                with self.span(name, device=True):
+                    return fn(*args, **kwargs)
+            return call
+        return dataclasses.replace(
+            model, prefill=wrap("model.prefill", model.prefill),
+            decode_step=wrap("model.decode_step", model.decode_step))
+
+
+class _NoSpans:
+    """The recorder of an engine without telemetry, and the one span it
+    hands out: it records nothing, reads no clock and evaluates no
+    counter."""
+    queued = types.MappingProxyType({})
+    end = None
+
+    def span(self, *args, **kwargs) -> "_NoSpans":
+        return self
+
+    def close(self, *args, **kwargs) -> None:
+        pass
+
+    instant = queue = dequeue = sample = close
+
+    def traced(self, model: Model) -> Model:
+        return model
+
+    def __enter__(self) -> "_NoSpans":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_NO_SPANS = _NoSpans()
 
 
 @dataclasses.dataclass
@@ -171,12 +300,6 @@ class InferenceEngine:
         self.lanes = [Lane() for _ in range(slots)]
         self.queue: list[Request] = []
         self.finished: list[Request] = []
-        #: the open ``request.queued`` span of each queued request
-        self._queued: dict[str, int] = {}
-        #: the open ``engine.step`` span, and the span the ``model.*``
-        #: spans nest under
-        self._step: Optional[int] = None
-        self._parent: Optional[int] = None
         self.telemetry = telemetry
 
     # -- telemetry -------------------------------------------------------------
@@ -190,74 +313,32 @@ class InferenceEngine:
         Set it before wrapping ``self.model``'s entry points: setting it
         swaps in a traced copy of the model."""
         self._telemetry = telemetry
-        self._trace = None if telemetry is None else telemetry.trace
-        self.model = self._plain_model
-        if self._trace is None:
-            return
-        if torch.device(self.device).type == "cuda":
-            self._telemetry.attach_device()
-        self.model = dataclasses.replace(
-            self.model,
-            prefill=self._traced("model.prefill", self.model.prefill),
-            decode_step=self._traced("model.decode_step",
-                                     self.model.decode_step))
+        self._spans = _NO_SPANS
+        if telemetry is not None:
+            self._spans = _Spans(telemetry, self)
+            if torch.device(self.device).type == "cuda":
+                telemetry.attach_device()
+        self.model = self._spans.traced(self._plain_model)
 
-    def _traced(self, name: str, fn):
-        trace, clock = self._trace, self._telemetry.clock
-
-        def call(*args, **kwargs):
-            sid = trace.begin(name, TRACK, clock(), parent=self._parent,
-                              device=True)
-            out = fn(*args, **kwargs)
-            trace.end(sid, clock())
-            return out
-        return call
-
-    def _kv_reserved(self) -> float:
-        """The KV bytes the gateway's pools charged at admission for the
-        requests they hold (their ``kv_in_use`` over live rows)."""
-        if self.gateway is None:
-            return 0.0
-        total = 0.0
-        for pool in self.gateway.manager.pools.values():
-            store = pool.store
-            total += float(store.col["kv_in_use"][store.live_slots()].sum())
-        return total
-
-    @staticmethod
-    def _replays(graph) -> int:
-        return 0 if graph is None else graph.replays
-
-    def _sample(self, t: float, active: int) -> None:
-        trace = self._trace
-        for name, value in (
-                ("lanes_active", active), ("queue_depth", len(self.queue)),
-                ("kv_used_bytes", self.kv_pages.kv_bytes_in_use()),
-                ("kv_reserved_bytes", self._kv_reserved()),
-                ("decode_graph_replays", self._replays(self.decode_graph)),
-                ("prefill_graph_replays",
-                 self._replays(self.prefill_graph))):
-            trace.counter(name, TRACK, t, {name: value})
+    @property
+    def _queued(self):
+        """The open ``request.queued`` span of each queued request."""
+        return self._spans.queued
 
     # -- submission ----------------------------------------------------------
     def submit(self, req: Request, now: float,
                api_key: Optional[str] = None) -> bool:
         """Admission-gated enqueue.  Returns False on 429/401."""
-        trace = self._trace
+        admitted_at = None      # request.queued opens where admission ends
         if self.gateway is not None:
-            if trace is not None:
-                clock = self._telemetry.clock
-                span = trace.begin("engine.admit", TRACK, clock(),
-                                   rid=req.request_id)
-            resp = self.gateway.handle(
-                api_key or req.api_key, req.request_id,
-                input_tokens=req.input_len, max_tokens=req.max_tokens,
-                now=now,
-                kv_bytes_per_token=self.model.cfg.kv_bytes_per_token)
-            if trace is not None:
-                t = clock()
-                trace.end(span, t, {"status": resp.status,
-                                    "reason": resp.reason})
+            with self._spans.span("engine.admit",
+                                  rid=req.request_id) as admit:
+                resp = self.gateway.handle(
+                    api_key or req.api_key, req.request_id,
+                    input_tokens=req.input_len, max_tokens=req.max_tokens,
+                    now=now,
+                    kv_bytes_per_token=self.model.cfg.kv_bytes_per_token)
+                admit.close(status=resp.status, reason=resp.reason)
             if resp.status != 200:
                 req.state = RequestState.DENIED
                 req.deny_reason = resp.reason
@@ -265,12 +346,9 @@ class InferenceEngine:
                 self.finished.append(req)
                 return False
             req.priority = resp.priority
+            admitted_at = admit.end
         req.admitted_s = now
-        if trace is not None:
-            self._queued[req.request_id] = trace.begin(
-                "request.queued", QUEUE_TRACK,
-                t if self.gateway is not None else self._telemetry.clock(),
-                rid=req.request_id)
+        self._spans.queue(req.request_id, start=admitted_at)
         self.queue.append(req)
         self.queue.sort(key=lambda r: (-r.priority, r.arrival_s))
         return True
@@ -285,133 +363,102 @@ class InferenceEngine:
         return torch.from_numpy(rows).to(self.device)
 
     def _start(self, lane_idx: int, req: Request, now: float) -> None:
-        trace = self._trace
-        if trace is not None:
-            clock, rid = self._telemetry.clock, req.request_id
-            t = clock()
-            trace.end(self._queued.pop(rid, -1), t)
-            span = self._parent = trace.begin(
-                "engine.prefill", TRACK, t, parent=self._step, rid=rid,
-                args={"lane": lane_idx, "prompt_tokens": req.input_len})
-            replays = self._replays(self.prefill_graph)
-        lane = self.lanes[lane_idx]
-        self.kv_pages.allocate(req.request_id, req.input_len)
-        tokens = torch.tensor([req.prompt_tokens], dtype=torch.long,
-                              device=self.device)
-        self.cache.reset(lane_idx)
-        logits = self.model.prefill(
-            self.params, tokens, self.cache, self._tables([req.request_id]),
-            lanes=torch.tensor([lane_idx], device=self.device))
-        if trace is not None:
-            first_span = trace.begin("engine.first_token", TRACK, clock(),
-                                     parent=span, rid=rid)
-        first = int(torch.argmax(logits[0, -1]))
-        if trace is not None:
-            t = clock()
-            trace.end(first_span, t)
-            trace.instant("first_token", TRACK, t, {"rid": rid})
-        req.first_token_s = now
-        req.output_tokens.append(first)
-        req.state = RequestState.DECODING
-        lane.request = req
-        lane.position = req.input_len
-        lane.remaining = req.max_tokens - 1
-        lane.last_token = first
-        self.kv_pages.extend(req.request_id, req.input_len + 1)
-        if trace is not None:
-            graphed = self._replays(self.prefill_graph) > replays
+        spans, rid = self._spans, req.request_id
+        with spans.span("engine.prefill", rid=rid, start=spans.dequeue(rid),
+                        lane=lane_idx, prompt_tokens=req.input_len) as prefill:
+            replays = _replays(self.prefill_graph)
+            self.kv_pages.allocate(rid, req.input_len)
+            tokens = torch.tensor([req.prompt_tokens], dtype=torch.long,
+                                  device=self.device)
+            self.cache.reset(lane_idx)
+            logits = self.model.prefill(
+                self.params, tokens, self.cache, self._tables([rid]),
+                lanes=torch.tensor([lane_idx], device=self.device))
+            with spans.span("engine.first_token", rid=rid) as first_span:
+                first = int(torch.argmax(logits[0, -1]))
+            spans.instant("first_token", rid, at=first_span.end)
+            req.first_token_s = now
+            req.output_tokens.append(first)
+            req.state = RequestState.DECODING
+            lane = self.lanes[lane_idx]
+            lane.request = req
+            lane.position = req.input_len
+            lane.remaining = req.max_tokens - 1
+            lane.last_token = first
+            self.kv_pages.extend(rid, req.input_len + 1)
+            graphed = _replays(self.prefill_graph) > replays
             bucket = (self.prefill_graph.bucket_for(req.input_len)
                       if graphed else req.input_len)
-            trace.end(span, clock(),
-                      {"graphed": graphed, "bucket": bucket,
-                       "padded_tokens": bucket - req.input_len})
+            prefill.close(graphed=graphed, bucket=bucket,
+                          padded_tokens=bucket - req.input_len)
 
     def step(self, now: float) -> int:
         """One engine iteration: admit-from-queue → batched decode.
         Returns the number of tokens produced."""
-        trace = self._trace
+        spans = self._spans
         free = self._free_lanes()
-        if trace is not None:
-            clock = self._telemetry.clock
-            step_span = self._step = trace.begin(
-                "engine.step", TRACK, clock(),
-                args={"queue_depth": len(self.queue),
-                      "lanes_active": self.slots - len(free)})
-        for lane_idx in free:
-            if not self.queue:
-                break
-            req = self.queue.pop(0)
-            self._start(lane_idx, req, now)
+        with spans.span("engine.step", queue_depth=len(self.queue),
+                        lanes_active=self.slots - len(free)) as step:
+            for lane_idx in free:
+                if not self.queue:
+                    break
+                req = self.queue.pop(0)
+                self._start(lane_idx, req, now)
+            active = [i for i, l in enumerate(self.lanes)
+                      if l.request is not None]
+            if not active:
+                return 0
+            with spans.span("engine.decode", lanes=len(active)) as decode:
+                replays = _replays(self.decode_graph)
+                with spans.span("engine.tables"):
+                    lanes = [self.lanes[i] for i in active]
+                    tokens = torch.tensor([[l.last_token] for l in lanes],
+                                          dtype=torch.long,
+                                          device=self.device)
+                    positions = torch.tensor([l.position for l in lanes],
+                                             dtype=torch.int32,
+                                             device=self.device)
+                    tables = self._tables([l.request.request_id
+                                           for l in lanes])
+                    lane_ids = torch.tensor(active, device=self.device)
+                logits = self.model.decode_step(
+                    self.params, tokens, self.cache, tables, positions,
+                    lanes=lane_ids)
+                with spans.span("engine.sample") as sample:
+                    nxt = torch.argmax(logits[:, 0, :], dim=-1).tolist()
+                with spans.span("engine.bookkeeping",
+                                start=sample.end) as book:
+                    for lane, tok in zip(lanes, nxt):
+                        self._advance(lane, tok, now)
+                decode.close(book.end,
+                             graphed=_replays(self.decode_graph) > replays)
+            spans.sample(len(active), at=book.end)
+            step.close(book.end)
+        return len(nxt)
 
-        active = [i for i, l in enumerate(self.lanes)
-                  if l.request is not None]
-        if not active:
-            if trace is not None:
-                trace.end(step_span, clock())
-            return 0
-        if trace is not None:
-            decode_span = self._parent = trace.begin(
-                "engine.decode", TRACK, clock(), parent=step_span,
-                args={"lanes": len(active)})
-            replays = self._replays(self.decode_graph)
-            span = trace.begin("engine.tables", TRACK, clock(),
-                               parent=decode_span)
-        lanes = [self.lanes[i] for i in active]
-        tokens = torch.tensor([[l.last_token] for l in lanes],
-                              dtype=torch.long, device=self.device)
-        positions = torch.tensor([l.position for l in lanes],
-                                 dtype=torch.int32, device=self.device)
-        tables = self._tables([l.request.request_id for l in lanes])
-        lane_ids = torch.tensor(active, device=self.device)
-        if trace is not None:
-            trace.end(span, clock())
-        logits = self.model.decode_step(
-            self.params, tokens, self.cache, tables, positions,
-            lanes=lane_ids)
-        if trace is not None:
-            span = trace.begin("engine.sample", TRACK, clock(),
-                               parent=decode_span)
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).tolist()
-        if trace is not None:
-            t = clock()
-            trace.end(span, t)
-            span = trace.begin("engine.bookkeeping", TRACK, t,
-                               parent=decode_span)
-        produced = 0
-        for lane, tok in zip(lanes, nxt):
-            req = lane.request
-            req.output_tokens.append(tok)
-            produced += 1
-            lane.position += 1
-            lane.remaining -= 1
-            lane.last_token = tok
-            self.kv_pages.extend(req.request_id, lane.position + 1)
-            done = (lane.remaining <= 0
-                    or (self.eos_id is not None and tok == self.eos_id)
-                    or lane.position + 1 >= self.max_seq)
-            if done:
-                req.state = RequestState.FINISHED
-                req.finished_s = now
-                self.finished.append(req)
-                self.kv_pages.free(req.request_id)
-                if self.gateway is not None:
-                    self.gateway.on_complete(
-                        req.request_id, len(req.output_tokens),
-                        latency_s=now - req.arrival_s, now=now)
-                if trace is not None:
-                    trace.instant("finished", TRACK, clock(),
-                                  {"rid": req.request_id})
-                lane.request = None
-                lane.remaining = 0
-        if trace is not None:
-            t = clock()
-            trace.end(span, t)
-            trace.end(decode_span, t,
-                      {"graphed": self._replays(self.decode_graph)
-                       > replays})
-            self._sample(t, len(active))
-            trace.end(step_span, t)
-        return produced
+    def _advance(self, lane: Lane, tok: int, now: float) -> None:
+        """A lane's decoded token in; its request finished when done."""
+        req = lane.request
+        req.output_tokens.append(tok)
+        lane.position += 1
+        lane.remaining -= 1
+        lane.last_token = tok
+        self.kv_pages.extend(req.request_id, lane.position + 1)
+        done = (lane.remaining <= 0
+                or (self.eos_id is not None and tok == self.eos_id)
+                or lane.position + 1 >= self.max_seq)
+        if done:
+            req.state = RequestState.FINISHED
+            req.finished_s = now
+            self.finished.append(req)
+            self.kv_pages.free(req.request_id)
+            if self.gateway is not None:
+                self.gateway.on_complete(
+                    req.request_id, len(req.output_tokens),
+                    latency_s=now - req.arrival_s, now=now)
+            self._spans.instant("finished", req.request_id)
+            lane.request = None
+            lane.remaining = 0
 
     def evict(self, request_id: str, now: float) -> bool:
         """Mid-stream eviction (preemption / client disconnect): free
@@ -434,10 +481,7 @@ class InferenceEngine:
                 return True
         for i, req in enumerate(self.queue):
             if req.request_id == request_id:
-                if self._trace is not None:
-                    self._trace.end(self._queued.pop(request_id, -1),
-                                    self._telemetry.clock(),
-                                    {"evicted": True})
+                self._spans.dequeue(request_id, evicted=True)
                 req.state = RequestState.EVICTED
                 req.finished_s = now
                 self.finished.append(self.queue.pop(i))

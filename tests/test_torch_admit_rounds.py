@@ -256,7 +256,7 @@ def test_route_by_quantum_length():
     d, ref = reference("padding")
     args, scal = port_args(d)
     before = (aq.admit_scan.launches, dict(aq.admit_scan.route_launches))
-    for kernel in (None, "rounds", "walk", "serial"):
+    for kernel in (None, "rounds", "walk"):
         assert_same(ref, aq.admit_scan(*args, **scal, kernel=kernel))
     assert (aq.admit_scan.launches,
             dict(aq.admit_scan.route_launches)) == before

@@ -16,7 +16,7 @@ import repro_torch.core as T
 from repro_torch.configs import get_config
 from repro_torch.gateway import Gateway
 from repro_torch.models import build_model
-from repro_torch.serving import InferenceEngine, Request
+from repro_torch.serving import InferenceEngine, KVBlockManager, Request
 from repro_torch.telemetry import Telemetry, TraceBuffer
 from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
@@ -214,12 +214,16 @@ def test_chrome_export_has_parent_and_rid(traced):
 
 def test_untraced_engine_records_nothing(model, traced, monkeypatch):
     """With ``telemetry=None`` the tokens are the traced run's, and no
-    trace call is made and no CUDA event built."""
+    trace call is made, no CUDA event built, no clock read and no
+    counter evaluated."""
     def refuse(*a, **k):
         raise AssertionError("telemetry work with telemetry=None")
     for name in ("begin", "end", "instant", "counter", "complete"):
         monkeypatch.setattr(TraceBuffer, name, refuse)
     monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(Telemetry, "clock", refuse)
+    monkeypatch.setattr(KVBlockManager, "kv_bytes_in_use", refuse)
+    monkeypatch.setattr(Gateway, "kv_reserved_bytes", refuse)
     eng = engine(model)
     assert eng.telemetry is None and eng.model is eng._plain_model
     reqs, steps = serve(eng)
